@@ -1,0 +1,78 @@
+"""Fougner–Boyd matrix equilibration (modified Sinkhorn–Knopp).
+
+Counterpart of ``pogs_tpu/linalg/equil.py``:
+
+  1. B = A ∘ A (2-norm equilibration).
+  2. 50 Sinkhorn–Knopp sweeps on B with a regularizing constant, on the
+     effective row/column counts, with zero rows/columns pinned to scale 1.
+  3. d ← √d, e ← √e; A ← diag(d) · A · diag(e).
+  4. Normalize: ‖A‖_F / √min(m,n) = 1, folding √normA into both d and e.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from pogs_tpu_torch.linalg.matrix import DenseMatrix
+
+SINKHORN_CONST = 1e-4
+EQUIL_ITERS = 50
+
+
+@dataclasses.dataclass
+class EquilResult:
+    """Equilibrated matrix and scalings: A_eq = d[:,None] * A * e[None,:] / normA."""
+
+    A: object
+    d: torch.Tensor
+    e: torch.Tensor
+
+
+def sinkhorn_knopp(bm, brm, m: int, n: int, dt, device, iters: int = EQUIL_ITERS):
+    """Modified Sinkhorn–Knopp on a nonnegative operator (bm = B@, brm = Bᵀ@).
+
+    Alternates e ← m_eff / (Bᵀ d + reg_e) and d ← n_eff / (B e + reg_d).
+    """
+    row_mass = bm(torch.ones(n, dtype=dt, device=device))
+    col_mass = brm(torch.ones(m, dtype=dt, device=device))
+    row_live = row_mass > 0
+    col_live = col_mass > 0
+    m_eff = torch.clamp(torch.sum(row_live.to(dt)), min=1.0)
+    n_eff = torch.clamp(torch.sum(col_live.to(dt)), min=1.0)
+    reg_e = SINKHORN_CONST * (m_eff + n_eff) / m_eff
+    reg_d = SINKHORN_CONST * (m_eff + n_eff) / n_eff
+
+    d = torch.ones(m, dtype=dt, device=device)
+    e = torch.ones(n, dtype=dt, device=device)
+    for _ in range(iters):
+        acc_e = torch.where(col_live, brm(d) + reg_e, m_eff)
+        e = m_eff / acc_e
+        acc_d = torch.where(row_live, bm(e) + reg_d, n_eff)
+        d = n_eff / acc_d
+    return d, e
+
+
+def equilibrate(A, iters: int = EQUIL_ITERS) -> EquilResult:
+    """Full equilibration pipeline. ``A`` is a tensor or a DenseMatrix; the
+    returned ``EquilResult.A`` is of the same kind."""
+    is_op = isinstance(A, DenseMatrix)
+    At = A.dense() if is_op else A
+    m, n = At.shape
+    dt = At.dtype
+    B = At * At
+    d, e = sinkhorn_knopp(lambda v: torch.mv(B, v), lambda v: torch.mv(B.T, v),
+                          m, n, dt, At.device, iters)
+    d = torch.sqrt(d)
+    e = torch.sqrt(e)
+    A_eq = At * d[:, None] * e[None, :]
+    norm_a = torch.sqrt(torch.sum(A_eq * A_eq)) / torch.sqrt(
+        torch.tensor(float(min(m, n)), dtype=dt, device=At.device))
+    norm_a = torch.where(norm_a > 0, norm_a, torch.ones_like(norm_a))  # A = 0
+    # The operator path multiplies by the reciprocal, as DenseMatrix.scalar_mul
+    # does in the JAX package.
+    A_eq = A_eq * (1.0 / norm_a) if is_op else A_eq / norm_a
+    scale = torch.sqrt(norm_a)
+    return EquilResult(A=DenseMatrix(A_eq) if is_op else A_eq,
+                       d=d / scale, e=e / scale)

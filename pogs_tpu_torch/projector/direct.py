@@ -1,0 +1,69 @@
+"""Direct (factorization-based) graph projector.
+
+Counterpart of ``pogs_tpu/projector/direct.py``: form the Gram matrix of the
+smaller dimension once, factor (G + sI) once, then each projection is a
+handful of matvecs.
+
+    m ≥ n (tall):  x = (AᵀA + sI)⁻¹ (s·x0 + Aᵀy0),        y = A x
+    m < n (wide):  w = (AAᵀ + sI)⁻¹ (A x0 − y0),
+                   x = x0 − Aᵀ w,                          y = y0 + s·w
+
+``method='inverse'`` (the default, and what the fused solve kernel consumes)
+keeps the explicit SPD inverse L⁻ᵀL⁻¹; ``method='cholesky'`` keeps L and
+solves two triangular systems per projection.  The Gram, the factor and the
+inverse are library calls made once at init.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _as_dense(A):
+    return A.dense() if hasattr(A, "dense") else A
+
+
+class DirectProjector:
+    """``init`` returns the factor dict; ``project`` is a function of it."""
+
+    def __init__(self, method: str = "inverse"):
+        if method not in ("inverse", "cholesky"):
+            raise ValueError(f"unknown direct method {method!r}")
+        self.method = method
+
+    def init(self, A, s=1.0):
+        """Factor (G + sI). Returns {"op": inverse or L, "s": s}."""
+        A = _as_dense(A)
+        m, n = A.shape
+        G = A.T @ A if m >= n else A @ A.T
+        k = G.shape[0]
+        K = G + s * torch.eye(k, dtype=A.dtype, device=A.device)
+        L = torch.linalg.cholesky(K)
+        if self.method == "inverse":
+            eye = torch.eye(k, dtype=A.dtype, device=A.device)
+            Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+            op = Linv.T @ Linv
+        else:
+            op = L
+        return {"op": op, "s": torch.tensor(s, dtype=A.dtype, device=A.device)}
+
+    def _solve(self, factor, rhs):
+        if self.method == "inverse":
+            return torch.mv(factor["op"], rhs)
+        return torch.cholesky_solve(rhs[:, None], factor["op"], upper=False)[:, 0]
+
+    def project(self, A, factor, x0, y0, tol=None, x_warm=None):
+        """Project (x0, y0) onto {(x, y) : y = A x}. tol/x_warm unused here."""
+        A = _as_dense(A)
+        m, n = A.shape
+        s = factor["s"]
+        if m >= n:
+            rhs = s * x0 + torch.mv(A.T, y0)
+            x = self._solve(factor, rhs)
+            y = torch.mv(A, x)
+        else:
+            rhs = torch.mv(A, x0) - y0
+            w = self._solve(factor, rhs)
+            x = x0 - torch.mv(A.T, w)
+            y = y0 + s * w
+        return x, y

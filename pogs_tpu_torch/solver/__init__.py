@@ -1,0 +1,6 @@
+"""Solver cores: graph-form ADMM."""
+
+from pogs_tpu_torch.solver.admm import admm_loop, postsolve_verify
+from pogs_tpu_torch.solver.graph import GraphFormSolver, admm_solve
+
+__all__ = ["admm_loop", "postsolve_verify", "GraphFormSolver", "admm_solve"]

@@ -1,0 +1,319 @@
+"""Graph-form ADMM core loop as an eager torch loop.
+
+Counterpart of ``pogs_tpu/solver/admm.py``; the same algorithm and
+constants (the reference's pogs.cpp):
+
+  * over-relaxation α = 1.7 (1.0 in exact-tol mode);
+  * approximate residuals ‖A‖‖Δx‖+‖Δy‖, replaced by the exact residuals
+    (two more matvecs) when within 10× of tolerance;
+  * adaptive ρ: spectral update every 50 iterations with a clamped
+    √imbalance ratio, residual balancing otherwise; ρ changes rescale z̃;
+  * the residual-tied projection tolerance ladder;
+  * exact-tol mode: residuals in the original (unscaled) space;
+  * the monotone done latch, and converged / NaN latched at the firing
+    iteration.
+
+No host sync per iteration: the done flag stays on the device and is read
+every ``DONE_CHECK_EVERY`` iterations.  Once ``done`` is set, every field of
+the state freezes (``torch.where(done, old, new)``), so iterations run past
+``done`` change nothing and the result equals that of a loop that stopped
+the moment ``done`` was set.  For the same reason both residual branches
+are evaluated and the right one is selected, instead of branching on the
+device flag.
+
+This loop is also the plain version of the fused solve kernel
+(``ops/fused_admm.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from pogs_tpu_torch.types import SolverSettings, Status
+
+# Adaptive-rho / over-relaxation constants (pogs.cpp:94-110).  The CUDA solve
+# kernel (csrc/fused_admm.cu) carries the same numbers; keep them in sync.
+K_DELTA_MIN = 1.05
+K_GAMMA = 1.01
+K_TAU = 0.8
+K_RHO_MIN = 1e-4
+K_RHO_MAX = 1e4
+# f32 needs tighter rho bounds (see the JAX package's admm.py).
+K_RHO_MIN_F32 = 1e-2
+K_RHO_MAX_F32 = 1e2
+K_KAPPA = 0.9
+K_SPEC_FREQ = 50
+K_SPEC_CHANGE_MIN = 0.67
+K_SPEC_CHANGE_MAX = 1.5
+K_SPEC_IMB_THRESH = 10.0
+K_SPEC_MIN_DELTA = 0.05
+
+# How often the host reads the device-side done flag.
+DONE_CHECK_EVERY = 10
+
+
+def _nrm(v):
+    return torch.linalg.vector_norm(v)
+
+
+def _sum2(v):
+    return torch.sum(v * v)
+
+
+def admm_loop(
+    A,
+    norm_A,
+    d,
+    e,
+    prox_fn: Callable,      # (x_in, y_in, rho) -> (x12, y12)   [scaled objective]
+    eval_fn: Callable,      # (x12, y12) -> optval              [scaled objective]
+    project_fn: Callable,   # (x0, y0, tol, x_warm) -> (x, y)
+    settings: SolverSettings,
+    z0,
+    zt0,
+    rho0,
+):
+    """Run the scaled-space ADMM iteration.
+
+    ``z0``/``zt0`` use the packed [x; y] warm-start convention.  Returns a
+    dict of scaled-space results plus diagnostics, as the JAX ``admm_loop``.
+    """
+    if settings.use_anderson:
+        raise NotImplementedError("Anderson acceleration is not ported yet")
+    Ad = A.dense() if hasattr(A, "dense") else A
+    m, n = Ad.shape
+    dt = Ad.dtype
+    dev = Ad.device
+    exact_mode = settings.use_exact_tol
+
+    def T(v):
+        return torch.as_tensor(v, dtype=dt, device=dev)
+
+    alpha = T(1.0 if exact_mode else 1.7)
+    one = T(1.0)
+    abs_tol = T(settings.abs_tol)
+    rel_tol = T(settings.rel_tol)
+    sqrtn_atol = torch.sqrt(T(n)) * abs_tol
+    sqrtm_atol = torch.sqrt(T(m)) * abs_tol
+    sqrtmn_atol = torch.sqrt(T(m + n)) * abs_tol
+    proj_tol_max = T(1e-10 if exact_mode else 1e-8)
+    proj_tol_min = T(1e-3 if exact_mode else 1e-2)
+    proj_pow = T(1.0 if exact_mode else 0.5)
+    max_iter = settings.max_iter
+    norm_A = T(norm_A)
+    # Constants of the rho schedule, made once: a tensor made from a Python
+    # number inside the loop is a host-to-device copy per iteration.
+    f32 = dt == torch.float32
+    rho_min = K_RHO_MIN_F32 if f32 else K_RHO_MIN
+    rho_max = K_RHO_MAX_F32 if f32 else K_RHO_MAX
+    freq = 10 if exact_mode else K_SPEC_FREQ
+    change_max = 2.0 if exact_mode else K_SPEC_CHANGE_MAX
+    change_min = 0.5 if exact_mode else K_SPEC_CHANGE_MIN
+    imb_thresh = T(5.0 if exact_mode else K_SPEC_IMB_THRESH)
+    delta_min = T(K_DELTA_MIN)
+
+    def body(st):
+        xprev, yprev = st["x"], st["y"]
+        rho = st["rho"]
+
+        xin = st["x"] - st["xt"]
+        yin = st["y"] - st["yt"]
+        x12, y12 = prox_fn(xin, yin, rho)
+
+        xm = xin - x12
+        ym = yin - y12
+        ym2, y12_2 = _sum2(ym), _sum2(y12)
+        gap = torch.abs(torch.dot(xm, x12) + torch.dot(ym, y12))
+        eps_gap = sqrtmn_atol + rel_tol * (
+            torch.sqrt(_sum2(xm) + ym2) * torch.sqrt(_sum2(x12) + y12_2))
+        eps_pri = sqrtm_atol + rel_tol * torch.sqrt(y12_2)
+        eps_dua = rho * (sqrtn_atol + rel_tol * _nrm(xm))
+
+        x_or = st["xt"] + alpha * x12 + (one - alpha) * xprev
+        y_or = st["yt"] + alpha * y12 + (one - alpha) * yprev
+
+        proj_tol = proj_tol_min * torch.pow(torch.minimum(st["prev_nrm_r"], one), proj_pow)
+        proj_tol = torch.maximum(torch.minimum(proj_tol, abs_tol), proj_tol_max)
+        x_new, y_new = project_fn(x_or, y_or, proj_tol, xprev)
+
+        # Approximate residuals (pogs.cpp:299-308).
+        nrm_s_a = rho * (norm_A * _nrm(yprev - y_new) + _nrm(xprev - x_new))
+        nrm_r_a = norm_A * _nrm(x12 - x_new) + _nrm(y12 - y_new)
+
+        # Exact residuals (pogs.cpp:310-336), selected when near tolerance.
+        r_vec = torch.mv(Ad, x12) - y12
+        s_vec = torch.mv(Ad.T, y12 + st["yt"] - yprev) + (x12 + st["xt"] - xprev)
+        if exact_mode:
+            near = torch.ones((), dtype=torch.bool, device=dev)
+            dm = torch.where(d == 0, torch.ones_like(d), d)
+            r_o = torch.where(d == 0, torch.zeros_like(r_vec), r_vec / dm)
+            y_o = torch.where(d == 0, torch.zeros_like(y12), y12 / dm)
+            ax_o = torch.where(d == 0, torch.zeros_like(r_vec), (r_vec + y12) / dm)
+            em = torch.where(e == 0, torch.ones_like(e), e)
+            s_o = torch.where(e == 0, torch.zeros_like(s_vec), s_vec / em)
+            nrm_r = _nrm(r_o)
+            nrm_s = rho * _nrm(s_o)
+            eps_pri = sqrtm_atol + rel_tol * torch.maximum(_nrm(ax_o), _nrm(y_o))
+            eps_dua = rho * (sqrtn_atol + rel_tol * _nrm(x12 * e))
+        else:
+            near = (nrm_r_a < 10 * eps_pri) & (nrm_s_a < 10 * eps_dua)
+            nrm_r = torch.where(near, _nrm(r_vec), nrm_r_a)
+            nrm_s = torch.where(near, rho * _nrm(s_vec), nrm_s_a)
+
+        converged = near & (nrm_r < eps_pri) & (nrm_s < eps_dua)
+        if settings.gap_stop:
+            converged = converged & (gap < eps_gap)
+        nan_found = ~(torch.isfinite(nrm_r) & torch.isfinite(torch.sum(x_new))
+                      & torch.isfinite(torch.sum(y_new)))
+        done = st["done"] | converged | nan_found | (st["k"] >= max_iter - 1)
+
+        if settings.verbose > 1:
+            stride = 10 if settings.verbose > 2 else 100
+            if int(st["k"]) % stride == 0 or bool(converged):
+                print(f"{int(st['k']):5d} : {float(nrm_r):.2e}  {float(eps_pri):.2e}  "
+                      f"{float(nrm_s):.2e}  {float(eps_dua):.2e}  {float(gap):.2e}  "
+                      f"{float(eps_gap):.2e}  {float(eval_fn(x12, y12)):.2e}")
+
+        # Dual update (pogs.cpp:396-399).
+        xt_new = st["xt"] + alpha * x12 + (one - alpha) * xprev - x_new
+        yt_new = st["yt"] + alpha * y12 + (one - alpha) * yprev - y_new
+
+        rho_new, delta_new, xi_new, kd_new, ku_new = (
+            rho, st["delta"], st["xi"], st["kd"], st["ku"])
+        if settings.adaptive_rho:
+            delta, xi, kd, ku = st["delta"], st["xi"], st["kd"], st["ku"]
+
+            pri_n = nrm_r / eps_pri
+            dua_n = nrm_s / eps_dua
+            k_int = st["k"]
+            spec_slot = (k_int > 0) & (k_int % freq == 0) & (eps_pri > 0) & (eps_dua > 0)
+            safe_dua = torch.where(dua_n == 0, torch.ones_like(dua_n), dua_n)
+            imb = pri_n / safe_dua
+            spec_cond = ((pri_n > 0) & (dua_n > 0)
+                         & ((imb > imb_thresh) | (imb < one / imb_thresh)))
+            rho_ratio = torch.clamp(torch.sqrt(imb), change_min, change_max)
+            rho_spec = torch.clamp(rho * rho_ratio, rho_min, rho_max)
+            spec_apply = (spec_slot & spec_cond
+                          & (torch.abs(rho_spec - rho) / rho > K_SPEC_MIN_DELTA))
+
+            kf = k_int.to(dt)
+            bal_slot = ~spec_slot
+            s_small = nrm_s < xi * eps_dua
+            r_small = nrm_r < xi * eps_pri
+            bal_up = bal_slot & s_small & ~r_small & (K_TAU * kf > kd)
+            bal_dn = bal_slot & ~s_small & r_small & (K_TAU * kf > ku) & ~bal_up
+            bal_both = bal_slot & s_small & r_small & ~bal_up & ~bal_dn
+            bal_else = bal_slot & ~bal_up & ~bal_dn & ~bal_both
+            up_apply = bal_up & (rho < rho_max)
+            dn_apply = bal_dn & (rho > rho_min)
+
+            rho_new = torch.where(
+                spec_apply, rho_spec,
+                torch.where(up_apply, rho * delta,
+                            torch.where(dn_apply, rho / delta, rho)))
+            zt_scale = torch.where(
+                spec_apply, rho / rho_spec,
+                torch.where(up_apply, one / delta,
+                            torch.where(dn_apply, delta, one)))
+            xt_new = xt_new * zt_scale
+            yt_new = yt_new * zt_scale
+            delta_new = torch.where(
+                up_apply | dn_apply, K_GAMMA * delta,
+                torch.where(bal_else, delta_min, delta))
+            xi_new = torch.where(bal_both, xi * K_KAPPA, xi)
+            ku_new = torch.where(up_apply, kf, ku)
+            kd_new = torch.where(dn_apply, kf, kd)
+
+        # Freeze post-convergence state (the reference breaks before the
+        # dual/rho updates, pogs.cpp:391-394).
+        def sel(new, old):
+            return torch.where(done, old, new)
+
+        return {
+            "x": x_new, "y": y_new,
+            "xt": sel(xt_new, st["xt"]), "yt": sel(yt_new, st["yt"]),
+            "x12": x12, "y12": y12, "xprev": xprev, "yprev": yprev,
+            "rho": sel(rho_new, rho),
+            "delta": sel(delta_new, st["delta"]), "xi": sel(xi_new, st["xi"]),
+            "kd": sel(kd_new, st["kd"]), "ku": sel(ku_new, st["ku"]),
+            "k": torch.where(done, st["k"], st["k"] + 1),
+            "done": done,
+            "converged": torch.where(st["done"], st["converged"], converged),
+            "nan_found": torch.where(st["done"], st["nan_found"], nan_found),
+            "nrm_r": nrm_r, "nrm_s": nrm_s, "gap": gap,
+            "eps_pri": eps_pri, "eps_dua": eps_dua, "eps_gap": eps_gap,
+            "prev_nrm_r": sel(nrm_r, st["prev_nrm_r"]),
+        }
+
+    z0 = T(z0)
+    zt0 = T(zt0)
+    zero = T(0.0)
+    false = torch.zeros((), dtype=torch.bool, device=dev)
+    st = {
+        "x": z0[:n], "y": z0[n:], "xt": zt0[:n], "yt": zt0[n:],
+        "x12": torch.zeros(n, dtype=dt, device=dev),
+        "y12": torch.zeros(m, dtype=dt, device=dev),
+        "xprev": torch.zeros(n, dtype=dt, device=dev),
+        "yprev": torch.zeros(m, dtype=dt, device=dev),
+        "rho": T(rho0), "delta": T(K_DELTA_MIN), "xi": T(1.0),
+        "kd": zero, "ku": zero,
+        "k": torch.zeros((), dtype=torch.int32, device=dev),
+        "done": false, "converged": false, "nan_found": false,
+        "nrm_r": zero, "nrm_s": zero, "gap": zero,
+        "eps_pri": zero, "eps_dua": zero, "eps_gap": zero,
+        "prev_nrm_r": T(torch.finfo(dt).max),
+    }
+
+    for it in range(max_iter):
+        new = body(st)
+        was_done = st["done"]
+        st = {key: torch.where(was_done, st[key], val) for key, val in new.items()}
+        if (it + 1) % DONE_CHECK_EVERY == 0 and bool(st["done"]):
+            break
+
+    # Outputs (scaled space), pogs.cpp:472-518.
+    optval = eval_fn(st["x12"], st["y12"])
+    mu_scaled = -st["rho"] * (st["xt"] - st["xprev"] + st["x12"])
+    nu_scaled = -st["rho"] * (st["yt"] - st["yprev"] + st["y12"])
+    status = torch.where(
+        st["converged"], Status.SUCCESS.value,
+        torch.where(st["nan_found"], Status.NAN_FOUND.value, Status.MAX_ITER.value),
+    ).to(torch.int32)
+
+    return {
+        "x12": st["x12"],
+        "y12": st["y12"],
+        "mu_scaled": mu_scaled,
+        "nu_scaled": nu_scaled,
+        "optval": optval,
+        "final_iter": st["k"],
+        "status": status,
+        "rho": st["rho"],
+        "nrm_r": st["nrm_r"],
+        "nrm_s": st["nrm_s"],
+        "gap": st["gap"],
+        "eps_pri": st["eps_pri"],
+        "eps_dua": st["eps_dua"],
+        # The last complete iterate, for implicit warm starts (pogs.cpp:573).
+        "z": torch.cat([st["xprev"], st["yprev"]]),
+        "zt": torch.cat([st["xt"], st["yt"]]),
+    }
+
+
+def postsolve_verify(A, d, e, x12, y12, status, abs_tol, rel_tol):
+    """Exact-tol post-solve verification (pogs.cpp:520-564): recompute the
+    primal residual in the original space and downgrade SUCCESS → MAX_ITER
+    if it misses tolerance. x12/y12 are *scaled*."""
+    Ad = A.dense() if hasattr(A, "dense") else A
+    m = Ad.shape[0]
+    dt = Ad.dtype
+    sqrtm_atol = torch.sqrt(torch.tensor(float(m), dtype=dt)) * abs_tol
+    dm = torch.where(d == 0, torch.ones_like(d), d)
+    ax_orig = torch.mv(Ad, x12) / dm
+    y_orig = y12 / dm
+    res = _nrm(ax_orig - y_orig)
+    eps = sqrtm_atol.to(Ad.device) + rel_tol * torch.maximum(_nrm(ax_orig), _nrm(y_orig))
+    bad = (status == Status.SUCCESS.value) & (res > eps)
+    return torch.where(bad, Status.MAX_ITER.value, status).to(torch.int32)

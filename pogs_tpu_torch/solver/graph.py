@@ -1,0 +1,308 @@
+"""Graph-form solver front end: init (equilibrate + factor) and solve.
+
+Counterpart of ``pogs_tpu/solver/graph.py`` (the reference's PogsSeparable
+and PogsImplementation): init equilibrates A, estimates ‖A‖₂ and factors
+the projector once per matrix; each ``solve`` scales the objective, runs the
+ADMM loop (the fused CUDA kernel where eligible, else the eager loop),
+unscales the result, and keeps the final iterate and ρ as the implicit warm
+start of the next solve.  A solve syncs with the host once, to read its
+status.
+"""
+
+from __future__ import annotations
+
+import time
+import warnings
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pogs_tpu_torch.types import (
+    DEFAULT_RHO,
+    FunctionVector,
+    SolverResult,
+    SolverSettings,
+    Status,
+    _torch_dtype,
+)
+from pogs_tpu_torch.prox.vector import prox_eval, func_eval, scale_f, scale_g
+from pogs_tpu_torch.linalg.equil import equilibrate
+from pogs_tpu_torch.linalg.matrix import DenseMatrix
+from pogs_tpu_torch.linalg.norm import norm2_est
+from pogs_tpu_torch.projector.direct import DirectProjector
+from pogs_tpu_torch.solver.admm import admm_loop, postsolve_verify
+from pogs_tpu_torch.ops.fused_admm import fused_admm_loop, fused_admm_supported
+from pogs_tpu_torch.utils.precision import highest_precision
+
+
+def _is_sparse(A) -> bool:
+    if isinstance(A, torch.Tensor):
+        return A.layout != torch.strided
+    return hasattr(A, "tocoo") or (hasattr(A, "todense") and not isinstance(A, np.ndarray))
+
+
+def resolve_device(A, device=None) -> torch.device:
+    """``device`` if given, else the device of a tensor ``A``, else CUDA."""
+    if device is not None:
+        return torch.device(device)
+    if isinstance(A, torch.Tensor):
+        return A.device
+    return torch.device("cuda")
+
+
+def _use_fused(dtype, device, settings: SolverSettings, direct_method: str) -> bool:
+    """Decide the fused-kernel path for a dense A with the direct projector:
+    the inverse method, no anderson / exact-tol / verbose > 1, f32 or f64,
+    on CUDA."""
+    if settings.use_fused is False:
+        return False
+    supported = (
+        direct_method == "inverse"
+        and fused_admm_supported(settings)
+        and dtype in (torch.float32, torch.float64)
+    )
+    if settings.use_fused:
+        if not supported:
+            raise ValueError(
+                "use_fused=True but the fused path does not support this "
+                "problem (needs the direct/inverse projector, "
+                "no anderson/exact-tol/verbose>1)"
+            )
+        return True
+    return supported and torch.device(device).type == "cuda"
+
+
+class GraphFormSolver:
+    """Reusable graph-form ADMM solver for a fixed matrix A.
+
+    ``solve(f, g)`` may be called repeatedly; equilibration and the Gram
+    factorization run once, and the final iterate carries over as a warm
+    start (the reference's λ-path pattern).
+    """
+
+    def __init__(
+        self,
+        A,
+        projector: str = "direct",
+        direct_method: str = "inverse",
+        dtype=None,
+        settings: Optional[SolverSettings] = None,
+        device=None,
+    ):
+        if _is_sparse(A):
+            raise NotImplementedError("sparse matrices are not ported yet")
+        if projector != "direct":
+            raise NotImplementedError(f"projector {projector!r} is not ported yet")
+        if direct_method not in ("inverse", "cholesky"):
+            raise ValueError(f"unknown direct method {direct_method!r}")
+        self.device = resolve_device(A, device)
+        A_t = A if isinstance(A, torch.Tensor) else torch.as_tensor(np.asarray(A))
+        if dtype is None:
+            # float64 input gives a float64 solve, anything else float32.
+            dtype = torch.float64 if A_t.dtype == torch.float64 else torch.float32
+        self.dtype = _torch_dtype(dtype)
+        self.A = DenseMatrix(A_t.to(device=self.device, dtype=self.dtype))
+        self.m, self.n = self.A.shape
+        self.projector = projector
+        self.direct_method = direct_method
+        self.settings = settings or SolverSettings()
+        self.rho = float(self.settings.rho)
+        self._init_state = None
+        self._z = None
+        self._zt = None
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def init(self):
+        """Equilibrate + estimate ‖A‖₂ + factor (idempotent)."""
+        if self._init_state is None:
+            t0 = time.perf_counter()
+            with highest_precision():
+                eq = equilibrate(self.A)
+                norm_A = norm2_est(eq.A)
+                factor = DirectProjector(self.direct_method).init(eq.A, s=1.0)
+            self._set_init_state({"A": eq.A.dense(), "d": eq.d, "e": eq.e,
+                                  "norm_A": norm_A, "factor": factor})
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.init_time = time.perf_counter() - t0
+        return self
+
+    def _set_init_state(self, state: dict):
+        A = state["A"]
+        state = dict(state)
+        # The fused kernel reads Aᵀ as a row-major copy; keep it with A.
+        state["At"] = A.T.contiguous() if self.direct_method == "inverse" else None
+        self._init_state = state
+
+    def load_init_state(self, state: dict):
+        """Install an init state made elsewhere (see ``utils.interop``):
+        keys ``A``, ``d``, ``e``, ``norm_A`` and ``factor`` = {"op", "s"}."""
+        A = state["A"]
+        if tuple(A.shape) != (self.m, self.n):
+            raise ValueError(f"init state A has shape {tuple(A.shape)}, "
+                             f"expected {(self.m, self.n)}")
+        self._set_init_state({
+            "A": A.to(device=self.device, dtype=self.dtype),
+            "d": state["d"].to(device=self.device, dtype=self.dtype),
+            "e": state["e"].to(device=self.device, dtype=self.dtype),
+            "norm_A": state["norm_A"].to(device=self.device, dtype=self.dtype),
+            "factor": {key: v.to(device=self.device, dtype=self.dtype)
+                       for key, v in state["factor"].items()},
+        })
+        self.init_time = 0.0
+        return self
+
+    def reset_warm_start(self):
+        self._z = None
+        self._zt = None
+        return self
+
+    # -- solving -------------------------------------------------------------
+
+    def solve(
+        self,
+        f: FunctionVector,
+        g: FunctionVector,
+        settings: Optional[SolverSettings] = None,
+        x_init=None,
+        nu_init=None,
+        rho: Optional[float] = None,
+    ) -> SolverResult:
+        if f.n != self.m:
+            raise ValueError(f"f has length {f.n}, expected m={self.m}")
+        if g.n != self.n:
+            raise ValueError(f"g has length {g.n}, expected n={self.n}")
+        settings = settings or self.settings
+        if (self.dtype == torch.float32
+                and min(settings.abs_tol, settings.rel_tol) < 1e-5):
+            warnings.warn(
+                "tolerances below 1e-5 sit at the float32 accuracy floor; "
+                "use dtype=float64 for tighter accuracy",
+                stacklevel=2,
+            )
+        if rho is None and settings.rho != DEFAULT_RHO:
+            rho = float(settings.rho)
+        self.init()
+
+        rho0 = float(rho if rho is not None else self.rho)
+        fused = _use_fused(self.dtype, self.device, settings, self.direct_method)
+
+        if settings.verbose > 0:
+            print(
+                "---------------------------------------------------------\n"
+                " pogs_tpu_torch — graph-form ADMM\n"
+                f"   A: {self.m} x {self.n} (dense, {self.dtype}, {self.device}), "
+                f"projector: {self.projector}"
+                f"{' [fused kernel]' if fused else ''}\n"
+                f"   abs_tol {settings.abs_tol:g}, rel_tol {settings.rel_tol:g}, "
+                f"rho {rho0:g}, max_iter {settings.max_iter}\n"
+                "---------------------------------------------------------"
+            )
+
+        t0 = time.perf_counter()
+        with highest_precision():
+            out = self._solve_scaled(f, g, settings, rho0, x_init, nu_init, fused)
+        status_val = int(out["status"])  # the one host sync of the solve
+        solve_time = time.perf_counter() - t0
+
+        # Persist warm-start state (pogs.cpp:573) and the adapted rho.
+        self._z = out["z"]
+        self._zt = out["zt"]
+        self.rho = float(out["rho"])
+
+        if settings.verbose > 0:
+            init_ms = getattr(self, "init_time", 0.0) * 1e3
+            print(
+                f" status: {Status(status_val).name}, "
+                f"iterations: {int(out['final_iter'])}, "
+                f"init: {init_ms:.2f} ms, "
+                f"solve time: {solve_time * 1e3:.2f} ms\n"
+                f" optval: {float(out['optval']):.6e}, "
+                f"nrm_r: {float(out['nrm_r']):.2e}, "
+                f"nrm_s: {float(out['nrm_s']):.2e}, "
+                f"gap: {float(out['gap']):.2e}"
+            )
+
+        return SolverResult(
+            x=out["x"], y=out["y"], mu=out["mu"], nu=out["nu"],
+            optval=out["optval"], final_iter=out["final_iter"],
+            status=Status(status_val), nrm_r=out["nrm_r"], nrm_s=out["nrm_s"],
+            gap=out["gap"], rho=out["rho"], solve_time=solve_time,
+        )
+
+    def _solve_scaled(self, f, g, settings, rho0, x_init, nu_init, fused):
+        st = self._init_state
+        A, d, e = st["A"], st["d"], st["e"]
+        factor, norm_A = st["factor"], st["norm_A"]
+        dev, dt = self.device, self.dtype
+        m, n = self.m, self.n
+
+        def params(fv):
+            a, b, c, dd, ee = (torch.as_tensor(p).to(device=dev, dtype=dt)
+                               for p in fv.params)
+            # Convexity clamps (prox_lib.h:62-69).
+            return (a, b, torch.clamp(c, min=0), dd, torch.clamp(ee, min=0))
+
+        f_s = scale_f(f.replace_params(*params(f)), d)
+        g_s = scale_g(g.replace_params(*params(g)), e)
+
+        if self._z is not None:
+            z0, zt0 = self._z, self._zt
+        else:
+            z0 = torch.zeros(m + n, dtype=dt, device=dev)
+            zt0 = torch.zeros(m + n, dtype=dt, device=dev)
+        # Warm start from (x0, nu0) (pogs.cpp:143-156).
+        if x_init is not None:
+            xs = torch.as_tensor(x_init).to(device=dev, dtype=dt) / e
+            z0 = torch.cat([xs, torch.mv(A, xs)])
+        if nu_init is not None:
+            nus = torch.as_tensor(nu_init).to(device=dev, dtype=dt) / d
+            zt0 = torch.cat([torch.mv(A.T, nus), -nus]) / rho0
+
+        if fused:
+            out = fused_admm_loop(
+                A, factor["op"], norm_A, f.h, tuple(f_s.params),
+                g.h, tuple(g_s.params), settings, z0, zt0, rho0, At=st["At"],
+            )
+        else:
+            projector = DirectProjector(self.direct_method)
+
+            def prox_fn(x_in, y_in, rho):
+                return prox_eval(g_s, x_in, rho), prox_eval(f_s, y_in, rho)
+
+            def eval_fn(x12, y12):
+                return func_eval(f_s, y12) + func_eval(g_s, x12)
+
+            def project_fn(px, py, tol, x_warm):
+                return projector.project(A, factor, px, py, tol, x_warm)
+
+            out = admm_loop(A, norm_A, d, e, prox_fn, eval_fn, project_fn,
+                            settings, z0, zt0, rho0)
+
+        if settings.use_exact_tol:
+            out["status"] = postsolve_verify(
+                A, d, e, out["x12"], out["y12"], out["status"],
+                settings.abs_tol, settings.rel_tol,
+            )
+
+        # Unscale to the original space (pogs.cpp:509-518).
+        out["x"] = out.pop("x12") * e
+        out["y"] = out.pop("y12") / d
+        out["mu"] = out.pop("mu_scaled") / e
+        out["nu"] = out.pop("nu_scaled") * d
+        return out
+
+
+def admm_solve(
+    A,
+    f: FunctionVector,
+    g: FunctionVector,
+    settings: Optional[SolverSettings] = None,
+    device=None,
+    **kw,
+) -> SolverResult:
+    """One-shot functional front end: solve min f(y) + g(x) s.t. y = Ax."""
+    solver = GraphFormSolver(A, settings=settings, device=device)
+    return solver.solve(f, g, **kw)

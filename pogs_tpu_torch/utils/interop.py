@@ -1,0 +1,33 @@
+"""State carried across from the JAX package.
+
+The tests export the JAX package's init state (the equilibrated A, the
+scalings d and e, ‖A‖₂ and the projector factor) as numpy arrays, and
+:func:`init_state_from_numpy` turns them into this package's init state, so
+that both packages iterate from bit-identical scaled data.  This module
+imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def init_state_from_numpy(d: dict, device="cpu") -> dict:
+    """Keys ``A``, ``d``, ``e``, ``norm_A`` and ``factor`` (a dict with
+    ``op`` and optionally ``s``), as numpy arrays, to tensors of A's dtype
+    on ``device``."""
+    A = np.array(d["A"])
+    dt = torch.from_numpy(A).dtype
+
+    def t(v):
+        return torch.as_tensor(np.array(v), dtype=dt, device=device)
+
+    factor = d["factor"]
+    return {
+        "A": t(A),
+        "d": t(d["d"]),
+        "e": t(d["e"]),
+        "norm_A": t(d["norm_A"]).reshape(()),
+        "factor": {"op": t(factor["op"]), "s": t(factor.get("s", 1.0)).reshape(())},
+    }
