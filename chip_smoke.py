@@ -6,18 +6,32 @@
 Phases, each printing one JSON line of its own:
   1. device: the card's name and power limit (as nvidia-smi reports them),
      the torch and CUDA versions;
-  2. build: nvcc builds the solve kernel from pogs_tpu_torch/csrc/;
-  3. the kernel against its plain version (the eager loop) on the card, on
-     the same scaled inputs from the port's init: tall bench lasso 500x300,
-     wide 300x500, logistic 200x100, nonneg LS with gap_stop, max_iter=5,
-     and the bench lasso in float64;
+  2. build: nvcc builds both kernels from pogs_tpu_torch/csrc/, one nvcc per
+     source, started together (or says that a library was cached);
+  3. the solve kernel (K1) against its plain version (the eager loop) on the
+     card, on the same scaled inputs from the port's init: tall bench lasso
+     500x300, wide 300x500, logistic 200x100, nonneg LS with gap_stop,
+     max_iter=5, and the bench lasso in float64;
   4. the main path: pogs_tpu_torch.solve_lasso on the bench problem (f32,
-     cuda), which must succeed, pass the lasso KKT check, and launch the
-     kernel exactly once per solve;
+     cuda), which must succeed, pass the lasso KKT check, and launch K1
+     exactly once per solve;
   5. a real size: lasso 5000x2500 f32 through GraphFormSolver, timed per
-     solve with CUDA events, for the kernel and for the eager loop;
-  6. a warm λ-path of 3 solves on one solver, kernel against eager loop.
-Then the kernels' summary line, and last {"ok": true, "device": {...}}.
+     solve with CUDA events, for K1 and for the eager loop;
+  6. a warm λ-path of 3 solves on one solver, K1 against the eager loop;
+  7. the batched kernel (K2) against its plain version on the card, lane for
+     lane: bench.py's λ-sweep (500x300 f32, K = 128), wide 300x500 (K = 16),
+     multi-RHS with a λ ladder (K = 8), max_iter=5, the sweep in float64,
+     and chunk independence (8 lanes of the K = 128 run against an 8-lane
+     run with 8 lanes per block);
+  8. the batched path: pogs_tpu_torch.parallel.batched_graph_solve on the
+     bench sweep (K = 128 f32, rel_tol 5e-4), one K2 launch per call, every
+     lane SUCCESS and within the lasso KKT check; then K2 against K
+     sequential cold K1 solves from the same init, at the bench size and at
+     5000x2500 (K = 32);
+  9. the warm λ-path: solve_lasso_path(warm=True) over 12 λ on the bench
+     problem, 12 K1 launches, iterations within 2 of the eager loop's.
+Then the kernels' summary line, the card's name and power limit, and last
+{"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Exits 1 when
 no CUDA device is present.  The bench problem generator is that of
@@ -36,6 +50,11 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 BENCH_TOL = dict(abs_tol=1e-4, rel_tol=1e-3, gap_stop=False)
+# The batched path's tolerance.  At bench.py's rel_tol 1e-3 one lane of the
+# sweep (λ = 0.504 λ_bench) ends SUCCESS with a lasso KKT violation of 1.04e-2
+# of its λ, in the kernel and in its plain version alike; at 5e-4 every lane
+# passes the bench's 1e-2 check.
+SWEEP_TOL = dict(abs_tol=1e-4, rel_tol=5e-4, gap_stop=False)
 
 
 def emit(obj):
@@ -52,14 +71,21 @@ def make_lasso(m, n, seed=42):
     return A.astype(np.float32), b.astype(np.float32), float(lam)
 
 
+def lasso_kkt_lanes(A, b, lams, X):
+    """Max lasso KKT violation relative to λ (bench.py's check), for every
+    lane (row of X, with its λ) at once."""
+    A64 = A.astype(np.float64)
+    X = np.asarray(X, np.float64)
+    lam = np.asarray(lams, np.float64)[:, None]
+    grad = (A64 @ X.T - b.astype(np.float64)[:, None]).T @ A64
+    viol = np.where(np.abs(X) > 1e-5, np.abs(grad + lam * np.sign(X)),
+                    np.maximum(np.abs(grad) - lam, 0.0))
+    return viol.max(axis=1) / lam[:, 0]
+
+
 def lasso_kkt(A, b, lam, x):
-    """Max lasso KKT violation relative to λ (bench.py's check)."""
-    x = np.asarray(x, np.float64)
-    A64, b64 = A.astype(np.float64), b.astype(np.float64)
-    grad = A64.T @ (A64 @ x - b64)
-    return float(np.max(np.where(
-        np.abs(x) > 1e-5, np.abs(grad + lam * np.sign(x)),
-        np.maximum(np.abs(grad) - lam, 0.0))) / lam)
+    """Max lasso KKT violation relative to λ of one solution."""
+    return float(lasso_kkt_lanes(A, b, [lam], np.asarray(x)[None, :])[0])
 
 
 def cuda_ms(torch, fn, reps):
@@ -92,17 +118,68 @@ def phase_device(torch):
     return line
 
 
+KERNELS = ("fused_admm", "fused_admm_batch")
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bytes per
+# second, and FLOP/s outside the tensor cores.
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+
+
 def phase_build():
     from pogs_tpu_torch.ops import _build
 
+    cached = {name: _build.library_path(name).exists() for name in KERNELS}
     t0 = time.perf_counter()
-    _build.load("fused_admm")
+    _build.load_all(KERNELS)
     secs = time.perf_counter() - t0
-    log = _build.BUILD_LOGS.get("fused_admm", "")
-    usage = [ln.strip() for ln in log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    emit({"phase": "build", "seconds": secs, "library": str(_build.library_path("fused_admm")),
-          "ptxas": usage})
+    libs = {}
+    for name in KERNELS:
+        log = _build.BUILD_LOGS.get(name, "")
+        libs[name] = {
+            "library": str(_build.library_path(name)),
+            "ptxas": ("cached: built by an earlier run, no compiler output" if cached[name]
+                      else [ln.strip() for ln in log.splitlines()
+                            if "registers" in ln or "spill" in ln]),
+        }
+    emit({"phase": "build", "seconds": secs, "libraries": libs})
+
+
+def reset_counts():
+    from pogs_tpu_torch.ops.fused_admm import fused_admm_loop
+    from pogs_tpu_torch.ops.fused_admm_batch import fused_batched_lasso_sweep
+
+    fused_admm_loop.launches = 0
+    fused_batched_lasso_sweep.launches = 0
+
+
+def read_counts():
+    from pogs_tpu_torch.ops.fused_admm import fused_admm_loop
+    from pogs_tpu_torch.ops.fused_admm_batch import fused_batched_lasso_sweep
+
+    return {"fused_admm_loop": fused_admm_loop.launches,
+            "fused_batched_lasso_sweep": fused_batched_lasso_sweep.launches}
+
+
+def bound_ms(n_bytes, flops, dtype):
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the FLOPs over the CUDA-core peak of the type."""
+    t_bytes = n_bytes / PEAK_BYTES
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def solve_work(m, n, iters, exact, itemsize, lanes=1, lane_in=0, lane_out=0):
+    """Bytes and FLOPs of graph-form solves on an (m, n) A.  Inputs are read
+    once (A, Ginv, the f and g parameters, and lane_in elements per lane),
+    outputs written once (lane_out elements per lane).  Every executed
+    iteration projects (2 (2mn + k^2) FLOPs); ``exact`` counts the exact
+    residual checks (4mn each) the run needed at least: one per converged
+    solve.  The other checks near tolerance are data-dependent and left
+    out, so the bound is a floor."""
+    k = min(m, n)
+    n_bytes = itemsize * (m * n + k * k + 5 * (m + n) + lanes * (lane_in + lane_out))
+    flops = 2 * (2 * m * n + k * k) * iters + 4 * m * n * exact
+    return n_bytes, flops
 
 
 def scaled_inputs(torch, P, A, f, g, dtype):
@@ -171,13 +248,18 @@ def phase_kernel_vs_plain(torch, P):
             errs[key] = err
             ok = ok and err <= lim
         ms = cuda_ms(torch, lambda: fused_admm_loop(*args, At=state["At"]), 10)
-        plain_ms = cuda_ms(torch, lambda: fused_admm_loop_ref(*args), 3)
+        plain_ms = cuda_ms(torch, lambda: fused_admm_loop_ref(*args), 2)
+        dname = str(dt).replace("torch.", "")
+        n_bytes, flops = solve_work(m, n, it_k + 1, int(s_k == 0), A.dtype.itemsize,
+                                    lane_in=2 * (m + n), lane_out=6 * (m + n))
+        bms, bby = bound_ms(n_bytes, flops, dname)
         rec = {"phase": "kernel_vs_plain", "case": name, "shape": [m, n],
-               "dtype": str(dt).replace("torch.", ""), "status": [s_k, s_p],
+               "dtype": dname, "status": [s_k, s_p],
                "iters": [it_k, it_p], "optval": [ov_k, ov_p],
                "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
                "ms_per_iter": ms / max(it_k + 1, 1),
-               "plain_ms_per_iter": plain_ms / max(it_p + 1, 1), "ok": ok}
+               "plain_ms_per_iter": plain_ms / max(it_p + 1, 1),
+               "bound_ms": bms, "bound_by": bby, "ok": ok}
         emit(rec)
         if not ok:
             raise AssertionError(f"kernel disagrees with its plain version: {name}")
@@ -190,7 +272,7 @@ def phase_main_path(torch, P):
     from pogs_tpu_torch.ops.fused_admm import fused_admm_loop
 
     A, b, lam = make_lasso(500, 300)
-    fused_admm_loop.launches = 0
+    reset_counts()
     results, wall_ms = [], []
     for i in range(5):
         t0 = time.perf_counter()
@@ -200,7 +282,10 @@ def phase_main_path(torch, P):
             raise AssertionError(
                 f"solve {i + 1}: kernel launches {fused_admm_loop.launches}, expected {i + 1}")
         results.append(r)
-    launches = fused_admm_loop.launches
+    counts = read_counts()
+    launches = counts["fused_admm_loop"]
+    if counts["fused_batched_lasso_sweep"] != 0:
+        raise AssertionError(f"the single solve launched the batched kernel: {counts}")
     r = results[-1]
     kkt = lasso_kkt(A, b, lam, r["x"])
     # One-shot calls: each pays init (equilibration, norm, factor) + solve.
@@ -286,6 +371,224 @@ def phase_warm_path(torch, P):
         raise AssertionError(f"warm λ-path iterations {iters}")
 
 
+def sweep_inputs(torch, P, A, b, lams, dtype, fb_batch=None):
+    """K2's inputs for a lasso λ-sweep from the port's init on the card:
+    (positional arguments, fb_batch)."""
+    m, n = A.shape
+    f = P.FunctionVector(P.Function.SQUARE, m, b=b)
+    g = P.FunctionVector(P.Function.ABS, n)
+    state, f_s, g_s = scaled_inputs(torch, P, A, f, g, dtype)
+    cb = torch.tensor(np.repeat(np.asarray(lams, np.float64)[:, None], n, axis=1),
+                      dtype=dtype, device="cuda")
+    fbb = None if fb_batch is None else torch.tensor(fb_batch, dtype=dtype, device="cuda")
+    return (state["A"], state["factor"]["op"], state["norm_A"], f.h, tuple(f_s.params),
+            g.h, tuple(g_s.params), cb), fbb, state, f_s, g_s
+
+
+def lane_check(out_k, out_p):
+    """Per lane: the same status, iterations within 2, optval within 1e-4
+    relative, x12 within 5e-5·max(1, ‖x12‖∞)."""
+    import torch
+
+    it_k, it_p = out_k["final_iter"].cpu(), out_p["final_iter"].cpu()
+    same_status = bool(torch.equal(out_k["status"].cpu(), out_p["status"].cpu()))
+    it_diff = int((it_k - it_p).abs().max())
+    ov_rel = float(((out_k["optval"] - out_p["optval"]).abs()
+                    / out_p["optval"].abs().clamp(min=1e-12)).max())
+    err = float((out_k["x12"] - out_p["x12"]).abs().max())
+    lim = 5e-5 * max(1.0, float(out_p["x12"].abs().max()))
+    ok = same_status and it_diff <= 2 and ov_rel <= 1e-4 and err <= lim
+    return ok, {"same_status": same_status, "max_iter_diff": it_diff,
+                "optval_max_rel": ov_rel, "max_abs_err": err, "x12_limit": lim}
+
+
+def sweep_bound(out, m, n, itemsize, fb):
+    """bound_ms of one K2 call: each input read once, each output written
+    once, the projection of every executed lane-iteration and one exact
+    residual check per converged lane."""
+    K = int(out["status"].shape[0])
+    iters = int((out["final_iter"].long() + 1).sum())
+    exact = int((out["status"] == 0).sum())
+    n_bytes, flops = solve_work(m, n, iters, exact, itemsize, lanes=K,
+                                lane_in=n + (m if fb else 0), lane_out=n + m + 4)
+    return bound_ms(n_bytes, flops, "float64" if itemsize == 8 else "float32")
+
+
+def phase_kernel_vs_plain_batch(torch, P):
+    from pogs_tpu_torch.ops import fused_admm_batch as fab
+
+    S = P.SolverSettings
+    A_b, b_b, lam_b = make_lasso(500, 300)
+    sweep = np.linspace(1.0, 0.5, 128) * lam_b
+    rng = np.random.default_rng(11)
+    A_w = rng.standard_normal((300, 500)).astype(np.float32)
+    b_w = rng.standard_normal(300).astype(np.float32)
+    fb = (b_b[None, :] + 0.1 * rng.standard_normal((8, 500))).astype(np.float32)
+    cases = [
+        ("sweep_500x300_K128_f32", A_b, b_b, sweep, None, S(**BENCH_TOL), torch.float32),
+        ("wide_300x500_K16_f32", A_w, b_w, np.linspace(1.0, 0.5, 16) * 0.3, None,
+         S(max_iter=1000), torch.float32),
+        ("multi_rhs_500x300_K8_f32", A_b, b_b, np.linspace(1.0, 0.5, 8) * lam_b, fb,
+         S(**BENCH_TOL), torch.float32),
+        ("sweep_max_iter_5_f32", A_b, b_b, sweep, None, S(max_iter=5), torch.float32),
+        ("sweep_500x300_K128_f64", A_b.astype(np.float64), b_b, sweep, None,
+         S(**BENCH_TOL), torch.float64),
+    ]
+    summary = None
+    for name, A, b, lams, fbb_np, st, dt in cases:
+        args, fbb, _, _, _ = sweep_inputs(torch, P, A, b, lams, dt, fbb_np)
+        args = args + (st, 1.0)
+        out_k = fab.fused_batched_lasso_sweep(*args, fb_batch=fbb)
+        out_p = fab.fused_batched_lasso_sweep_ref(*args, fb_batch=fbb)
+        torch.cuda.synchronize()
+        ok, stats = lane_check(out_k, out_p)
+        if name.startswith("sweep_max_iter"):
+            ok = ok and bool((out_k["status"] == int(P.Status.MAX_ITER)).all())
+        ms = cuda_ms(torch, lambda: fab.fused_batched_lasso_sweep(*args, fb_batch=fbb), 5)
+        plain_ms = cuda_ms(torch, lambda: fab.fused_batched_lasso_sweep_ref(*args, fb_batch=fbb), 2)
+        m, n = A.shape
+        K = len(lams)
+        bms, bby = sweep_bound(out_k, m, n, A.dtype.itemsize, fbb is not None)
+        it = out_k["final_iter"].cpu()
+        rec = {"phase": "kernel_vs_plain_batch", "case": name, "shape": [m, n], "K": K,
+               "dtype": str(dt).replace("torch.", ""),
+               "iters_min_max": [int(it.min()), int(it.max())],
+               "statuses": sorted(set(out_k["status"].cpu().tolist())), **stats,
+               "ms": ms, "plain_ms": plain_ms, "ms_per_solve": ms / K,
+               "bound_ms": bms, "bound_by": bby, "ok": ok}
+        if name == "sweep_500x300_K128_f32":
+            # The kernel's time at each lane count per block, as a record for
+            # the rule that picks it (chunk_for).
+            rule = fab.chunk_for
+            per_kc = {}
+            for kc in fab.LANE_CHUNKS:
+                fab.chunk_for = lambda K, slots, kc=kc: kc
+                try:
+                    per_kc[kc] = cuda_ms(torch, lambda: fab.fused_batched_lasso_sweep(*args), 3)
+                finally:
+                    fab.chunk_for = rule
+            rec["ms_by_lanes_per_block"] = per_kc
+            # Chunk independence: the first 8 lanes against an 8-lane run with
+            # all 8 lanes in one block.
+            args8 = args[:7] + (args[7][:8],) + args[8:]
+            fab.chunk_for = lambda K, slots: 8
+            try:
+                out8 = fab.fused_batched_lasso_sweep(*args8)
+            finally:
+                fab.chunk_for = rule
+            torch.cuda.synchronize()
+            err8 = float((out8["x12"] - out_k["x12"][:8]).abs().max())
+            ind_ok = (torch.equal(out8["status"], out_k["status"][:8])
+                      and torch.equal(out8["final_iter"], out_k["final_iter"][:8])
+                      and err8 <= 1e-6 * max(1.0, float(out_k["x12"][:8].abs().max())))
+            used = rule(K, fab._slots(fab._lib(), args[0].device, False))
+            rec["chunk_independence"] = {"lanes": 8, "lanes_per_block": [used, 8],
+                                         "max_abs_err": err8, "ok": bool(ind_ok)}
+            ok = ok and bool(ind_ok)
+            rec["ok"] = ok
+            summary = rec
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"the batched kernel disagrees with its plain version: {name}")
+    return summary
+
+
+def k1_sequential_ms(torch, P, args, lams, st, reps):
+    """ms per solve of K cold K1 solves, one per λ, from the same init."""
+    from pogs_tpu_torch.ops.fused_admm import fused_admm_loop
+    from pogs_tpu_torch.prox.vector import scale_g
+
+    A, Ginv, norm_A, h_f, f_par, h_g, g_par, _ = args
+    m, n = A.shape
+    At = A.T.contiguous()
+    z0 = torch.zeros(m + n, dtype=A.dtype, device="cuda")
+    g_lanes = [tuple(g_par[:2]) + (torch.full((n,), float(lam), dtype=A.dtype, device="cuda"),)
+               + tuple(g_par[3:]) for lam in lams]
+
+    def run():
+        return [fused_admm_loop(A, Ginv, norm_A, h_f, f_par, h_g, gp, st, z0, z0, 1.0, At=At)
+                for gp in g_lanes]
+
+    outs = run()
+    if not all(int(o["status"]) == 0 for o in outs):
+        raise AssertionError("a sequential K1 solve did not succeed")
+    return cuda_ms(torch, run, reps) / len(lams), [int(o["final_iter"]) for o in outs]
+
+
+def phase_batched_path(torch, P):
+    from pogs_tpu_torch.ops import fused_admm_batch as fab
+    from pogs_tpu_torch.parallel import batched_graph_solve
+
+    out = {"phase": "batched_path"}
+    for label, (m, n, K, reps) in (("bench", (500, 300, 128, 5)),
+                                    ("real_size", (5000, 2500, 32, 2))):
+        A, b, lam = make_lasso(m, n)
+        lams = (np.linspace(1.0, 0.5, K) * lam).astype(np.float32)
+        f = P.FunctionVector(P.Function.SQUARE, m, b=b)
+        g = P.FunctionVector(P.Function.ABS, n)
+        st = P.SolverSettings(**SWEEP_TOL)
+        reset_counts()
+        calls, results = 3 if label == "bench" else 1, []
+        for i in range(calls):
+            results.append(batched_graph_solve(A, f, g, lams, settings=st))
+            counts = read_counts()
+            if counts != {"fused_admm_loop": 0, "fused_batched_lasso_sweep": i + 1}:
+                raise AssertionError(f"{label}: launches {counts} after {i + 1} calls")
+        launches = read_counts()["fused_batched_lasso_sweep"]
+        r = results[-1]
+        status = r["status"].cpu().numpy()
+        x = r["x"].cpu().numpy()
+        kkt = lasso_kkt_lanes(A, b, lams, x).tolist()
+        if not (status == 0).all() or not np.isfinite(x).all() or x.shape != (K, n):
+            raise AssertionError(f"{label}: statuses {sorted(set(status.tolist()))}")
+        if max(kkt) >= 1e-2:
+            raise AssertionError(f"{label}: lasso KKT violation {max(kkt)}")
+        call_ms = cuda_ms(torch, lambda: batched_graph_solve(A, f, g, lams, settings=st), reps)
+        args, _, _, _, _ = sweep_inputs(torch, P, A, b, lams, torch.float32)
+        k2_ms = cuda_ms(torch, lambda: fab.fused_batched_lasso_sweep(*args, st, 1.0), reps)
+        seq_ms, seq_iters = k1_sequential_ms(torch, P, args, lams, st, max(1, reps // 2))
+        it = r["iterations"].cpu().numpy()
+        out[label] = {
+            "shape": [m, n], "K": K, "tol": SWEEP_TOL, "launches": launches,
+            "kkt_max": max(kkt),
+            "iters_min_max": [int(it.min()), int(it.max())],
+            "call_ms": call_ms, "call_ms_per_solve": call_ms / K,
+            "k2_ms": k2_ms, "k2_ms_per_solve": k2_ms / K,
+            "k1_sequential_ms_per_solve": seq_ms,
+            "k1_sequential_iters_min_max": [min(seq_iters), max(seq_iters)],
+        }
+        if label == "bench":
+            out["launches"] = launches
+    emit(out)
+    return out
+
+
+def phase_warm_lasso_path(torch, P):
+    from pogs_tpu_torch.parallel import solve_lasso_path
+
+    A, b, lam = make_lasso(500, 300)
+    lams = np.geomspace(2.0, 0.1, 12) * lam
+    iters, ms = {}, {}
+    for label, use_fused in (("kernel", None), ("eager", False)):
+        st = P.SolverSettings(use_fused=use_fused, **BENCH_TOL)
+        reset_counts()
+        r = solve_lasso_path(A, b, lams, settings=st, warm=True)
+        counts = read_counts()
+        want = 12 if label == "kernel" else 0
+        if counts != {"fused_admm_loop": want, "fused_batched_lasso_sweep": 0}:
+            raise AssertionError(f"warm path ({label}): launches {counts}")
+        if not bool((r["status"] == 0).all()):
+            raise AssertionError(f"warm path ({label}): statuses {r['status'].tolist()}")
+        iters[label] = r["iterations"].cpu().tolist()
+        ms[label] = cuda_ms(torch, lambda: solve_lasso_path(A, b, lams, settings=st, warm=True),
+                            3 if label == "kernel" else 1)
+    ok = all(abs(a - c) <= 2 for a, c in zip(iters["kernel"], iters["eager"]))
+    emit({"phase": "warm_lasso_path", "lambdas": 12, "launches": 12, "iterations": iters,
+          "ms_per_path": ms, "ok": ok})
+    if not ok:
+        raise AssertionError(f"warm λ-path iterations {iters}")
+
+
 def main() -> int:
     import torch
 
@@ -303,8 +606,12 @@ def main() -> int:
     launches = phase_main_path(torch, P)
     phase_real_size(torch, P)
     phase_warm_path(torch, P)
+    summary_b = phase_kernel_vs_plain_batch(torch, P)
+    batched = phase_batched_path(torch, P)
+    phase_warm_lasso_path(torch, P)
     if "jax" in sys.modules or "pogs_tpu" in sys.modules:
         raise AssertionError("the port imported jax or pogs_tpu")
+    # No single PyTorch call computes an ADMM solve or sweep: library_ms null.
     emit({"kernels": [{
         "name": "fused_admm_loop", "route": "cuda",
         "source": "pogs_tpu_torch/csrc/fused_admm.cu",
@@ -312,6 +619,17 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max(summary["max_abs_err"].values()),
         "ms": summary["ms"], "plain_ms": summary["plain_ms"],
+        "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "fused_batched_lasso_sweep", "route": "cuda",
+        "source": "pogs_tpu_torch/csrc/fused_admm_batch.cu",
+        "replaces": "pogs_tpu/ops/fused_admm_batch.py:415",
+        "launches": batched["launches"],
+        "max_abs_err": summary_b["max_abs_err"],
+        "ms": summary_b["ms"], "plain_ms": summary_b["plain_ms"],
+        "bound_ms": summary_b["bound_ms"], "bound_by": summary_b["bound_by"],
+        "library_ms": None,
     }]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

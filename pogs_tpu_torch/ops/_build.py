@@ -3,9 +3,10 @@
 Each kernel source in ``pogs_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 Hopper (sm_90a) into a shared library with a plain C interface, at first
 use, and loaded with ``ctypes``.  The library lands in ``build/pogs_tpu_torch/``
-at the root of the checkout, named by a hash of the source and the flags, so
-a changed source rebuilds and an unchanged one loads at once.  Nothing here
-runs at import time.
+at the root of the checkout, named by a hash of the source, of every shared
+header (``csrc/*.cuh``) and of the flags, so a changed source or header
+rebuilds and an unchanged one loads at once.  Nothing here runs at import
+time.
 """
 
 from __future__ import annotations
@@ -39,32 +40,59 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def _start(name: str):
+    """Start nvcc on ``csrc/<name>.cu`` into a temporary file; returns
+    (process, temporary path, library path)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, library_path(name)
+
+
+def _finish(name: str, proc, tmp: str, out: Path):
+    try:
+        BUILD_LOGS[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed to build {name}.cu:\n{BUILD_LOGS[name]}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load_all(names) -> dict:
+    """Build every missing library of ``names`` at once (one nvcc each,
+    started together), and load them all.  Returns {name: CDLL}."""
+    started, errors = {}, []
+    try:
+        for name in names:
+            if name not in _LIBS and not library_path(name).exists():
+                started[name] = _start(name)
+    finally:
+        # Wait for every compiler started, even when one of them failed.
+        for name, (proc, tmp, out) in started.items():
+            try:
+                _finish(name, proc, tmp, out)
+            except RuntimeError as exc:
+                errors.append(exc)
+    if errors:
+        raise errors[0]
+    for name in names:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(str(library_path(name)))
+    return {name: _LIBS[name] for name in names}
 
 
 def load(name: str) -> ctypes.CDLL:
     """Build ``csrc/<name>.cu`` if its library is missing, and load it."""
-    lib = _LIBS.get(name)
-    if lib is not None:
-        return lib
-    out = library_path(name)
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            BUILD_LOGS[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed to build {name}.cu:\n{BUILD_LOGS[name]}")
-            os.replace(tmp, out)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
-    lib = ctypes.CDLL(str(out))
-    _LIBS[name] = lib
-    return lib
+    return load_all([name])[name]

@@ -1,0 +1,373 @@
+"""K graph-form ADMM solves as ONE hand-written CUDA kernel: λ-sweeps and
+multi-right-hand-side fits that share A, f and g.
+
+Counterpart of ``pogs_tpu/ops/fused_admm_batch.py::fused_batched_lasso_sweep``.
+Lane k solves the problem with g.c replaced by ``c_batch[k]`` (a λ-sweep)
+and, optionally, f.b replaced by ``fb_batch[k]`` (multi-RHS).  The kernel
+(``csrc/fused_admm_batch.cu``) gives each thread block a chunk of Kc lanes
+and runs the whole while-loop for them; its source note says what bounds it
+on the card and what the design does about it.
+
+``fused_batched_lasso_sweep`` takes the same arguments and returns the same
+dict as the JAX function:
+
+  * on a CUDA tensor it launches the kernel or raises — there is no fallback;
+  * on a CPU tensor it runs the plain version,
+    :func:`fused_batched_lasso_sweep_ref`, an eager loop over (K, ·) tensors.
+
+``fused_batched_lasso_sweep.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import numpy as np
+import torch
+
+from pogs_tpu_torch.types import FunctionVector, SolverSettings, Status
+from pogs_tpu_torch.prox.scalar import FUNC
+from pogs_tpu_torch.prox.vector import _dispatch, prox_eval
+from pogs_tpu_torch.ops.fused_admm import _fv, fused_admm_supported
+from pogs_tpu_torch.solver.admm import (
+    DONE_CHECK_EVERY, K_DELTA_MIN, rho_schedule, rho_schedule_constants,
+)
+
+_DTYPES = (torch.float32, torch.float64)
+_SLOTS: dict = {}
+# Lanes per thread block the kernel is built for.
+LANE_CHUNKS = (1, 2, 4, 8)
+
+
+def _sum2(v):
+    """Per-lane sum of squares: (K, d) -> (K, 1)."""
+    return torch.sum(v * v, dim=1, keepdim=True)
+
+
+def _nrm(v):
+    """Per-lane 2-norm: (K, d) -> (K, 1)."""
+    return torch.sqrt(_sum2(v))
+
+
+def _dot(u, v):
+    return torch.sum(u * v, dim=1, keepdim=True)
+
+
+def _feval(fv: FunctionVector, x):
+    """Per-lane objective: (K, d) -> (K, 1); parameters broadcast per lane."""
+    a, b, c, d, e = fv.params
+    hval = _dispatch(FUNC, fv.h, a * x - b)
+    return torch.sum(c * hval + d * x + 0.5 * e * x * x, dim=1, keepdim=True)
+
+
+def _lane_inputs(A, h_f, f_params, h_g, g_params, c_batch, fb_batch):
+    """The (K, ·) view of the objective: g with the lanes' c, f with the
+    lanes' b when given."""
+    dt, dev = A.dtype, A.device
+    m, n = A.shape
+
+    def vec(v, length):
+        t = torch.as_tensor(v, dtype=dt, device=dev)
+        if tuple(t.shape) != (length,):
+            raise ValueError(f"a parameter of shape {tuple(t.shape)}, expected ({length},)")
+        return t
+
+    fa, fb, fc, fd, fe = (vec(p, m) for p in f_params)
+    ga, gb, _, gd, ge = (vec(p, n) for p in g_params)
+    cb = torch.as_tensor(c_batch, dtype=dt, device=dev)
+    if cb.dim() != 2 or cb.shape[1] != n or cb.shape[0] < 1:
+        raise ValueError(f"c_batch has shape {tuple(cb.shape)}, expected (K, {n})")
+    if fb_batch is not None:
+        fb = torch.as_tensor(fb_batch, dtype=dt, device=dev)
+        if tuple(fb.shape) != (cb.shape[0], m):
+            raise ValueError(f"fb_batch has shape {tuple(fb.shape)}, "
+                             f"expected {(cb.shape[0], m)}")
+    return (_fv(h_f, (fa, fb, fc, fd, fe)), _fv(h_g, (ga, gb, cb, gd, ge)))
+
+
+def fused_batched_lasso_sweep_ref(A, Ginv, norm_A, h_f, f_params, h_g, g_params,
+                                  c_batch, settings: SolverSettings, rho0,
+                                  fb_batch=None):
+    """The kernel's plain version: every lane's ADMM iteration, as (K, ·)
+    tensors, in an eager loop.
+
+    Per lane, as the single solve: the prox with the lane's c (and b), the
+    gap and tolerances, the projection as one product per phase for all
+    lanes, both residual branches with the per-lane ``near`` select, the
+    per-lane ρ schedule, and the monotone done / converged / NaN latches.
+    x12, y12 and optval are latched at each lane's firing iteration.  Once
+    a lane is done its whole state freezes.  The host reads "all lanes
+    done" every ``DONE_CHECK_EVERY`` iterations.
+    """
+    m, n = A.shape
+    dt, dev = A.dtype, A.device
+    f_l, g_l = _lane_inputs(A, h_f, f_params, h_g, g_params, c_batch, fb_batch)
+    K = g_l.c.shape[0]
+    tall = m >= n
+    At = A.T
+    Ginv = torch.as_tensor(Ginv, dtype=dt, device=dev)
+
+    def T(v):
+        return torch.as_tensor(v, dtype=dt, device=dev)
+
+    one, alpha = T(1.0), T(1.7)
+    abs_tol, rel_tol = T(settings.abs_tol), T(settings.rel_tol)
+    sqrtn_atol = torch.sqrt(T(n)) * abs_tol
+    sqrtm_atol = torch.sqrt(T(m)) * abs_tol
+    sqrtmn_atol = torch.sqrt(T(m + n)) * abs_tol
+    norm_A = T(norm_A)
+    sched = rho_schedule_constants(dt, dev)
+    max_iter = settings.max_iter
+
+    def project(x0, y0):
+        if tall:
+            x = (x0 + y0 @ A) @ Ginv
+            return x, x @ At
+        w = (x0 @ At - y0) @ Ginv
+        return x0 - w @ A, y0 + w
+
+    def body(st):
+        zx, zy, ztx, zty, rho = st["zx"], st["zy"], st["ztx"], st["zty"], st["rho"]
+        zin_x, zin_y = zx - ztx, zy - zty
+        x12 = prox_eval(g_l, zin_x, rho)
+        y12 = prox_eval(f_l, zin_y, rho)
+        zmx, zmy = zin_x - x12, zin_y - y12
+        gap = torch.abs(_dot(zmx, x12) + _dot(zmy, y12))
+        eps_gap = sqrtmn_atol + rel_tol * (
+            torch.sqrt(_sum2(zmx) + _sum2(zmy)) * torch.sqrt(_sum2(x12) + _sum2(y12)))
+        eps_pri = sqrtm_atol + rel_tol * _nrm(y12)
+        eps_dua = rho * (sqrtn_atol + rel_tol * _nrm(zmx))
+
+        zor_x = ztx + alpha * x12 + (one - alpha) * zx
+        zor_y = zty + alpha * y12 + (one - alpha) * zy
+        zx_new, zy_new = project(zor_x, zor_y)
+
+        nrm_s_a = rho * (norm_A * _nrm(zy - zy_new) + _nrm(zx - zx_new))
+        nrm_r_a = norm_A * _nrm(x12 - zx_new) + _nrm(y12 - zy_new)
+        near = (nrm_r_a < 10 * eps_pri) & (nrm_s_a < 10 * eps_dua)
+        r_vec = x12 @ At - y12
+        s_vec = (y12 + zty - zy) @ A + (x12 + ztx - zx)
+        nrm_r = torch.where(near, _nrm(r_vec), nrm_r_a)
+        nrm_s = torch.where(near, rho * _nrm(s_vec), nrm_s_a)
+
+        converged = near & (nrm_r < eps_pri) & (nrm_s < eps_dua)
+        if settings.gap_stop:
+            converged = converged & (gap < eps_gap)
+        nan_found = ~(torch.isfinite(nrm_r) & torch.isfinite(
+            torch.sum(zx_new, 1, keepdim=True) + torch.sum(zy_new, 1, keepdim=True)))
+        k = st["k"]
+        done = st["done"] | converged | nan_found | (k >= max_iter - 1)
+
+        ztx_new = ztx + alpha * x12 + (one - alpha) * zx - zx_new
+        zty_new = zty + alpha * y12 + (one - alpha) * zy - zy_new
+        rho_new, delta_new, xi_new, kd_new, ku_new = (
+            rho, st["delta"], st["xi"], st["kd"], st["ku"])
+        if settings.adaptive_rho:
+            rho_new, zt_scale, delta_new, xi_new, kd_new, ku_new = rho_schedule(
+                k, rho, st["delta"], st["xi"], st["kd"], st["ku"],
+                nrm_r, nrm_s, eps_pri, eps_dua, **sched)
+            ztx_new = ztx_new * zt_scale
+            zty_new = zty_new * zt_scale
+
+        optval = _feval(f_l, y12) + _feval(g_l, x12)
+
+        # A firing lane keeps its z̃ and ρ (the solve breaks before those
+        # updates) and latches its iterate, objective and status.
+        def sel(new, old):
+            return torch.where(done, old, new)
+
+        return {
+            "zx": zx_new, "zy": zy_new,
+            "ztx": sel(ztx_new, ztx), "zty": sel(zty_new, zty),
+            "rho": sel(rho_new, rho), "delta": sel(delta_new, st["delta"]),
+            "xi": sel(xi_new, st["xi"]), "kd": sel(kd_new, st["kd"]),
+            "ku": sel(ku_new, st["ku"]),
+            "k": torch.where(done, k, k + 1),
+            "done": done, "converged": converged, "nan_found": nan_found,
+            "x12": x12, "y12": y12, "optval": optval,
+        }
+
+    def zeros(d, dtype=dt):
+        return torch.zeros((K, d), dtype=dtype, device=dev)
+
+    false = zeros(1, torch.bool)
+    st = {
+        "zx": zeros(n), "zy": zeros(m), "ztx": zeros(n), "zty": zeros(m),
+        "rho": torch.full((K, 1), float(rho0), dtype=dt, device=dev),
+        "delta": torch.full((K, 1), K_DELTA_MIN, dtype=dt, device=dev),
+        "xi": torch.ones((K, 1), dtype=dt, device=dev),
+        "kd": zeros(1), "ku": zeros(1), "k": zeros(1, torch.int32),
+        "done": false, "converged": false, "nan_found": false,
+        "x12": zeros(n), "y12": zeros(m), "optval": zeros(1),
+    }
+    for it in range(max_iter):
+        new = body(st)
+        was_done = st["done"]
+        st = {key: torch.where(was_done, st[key], val) for key, val in new.items()}
+        if (it + 1) % DONE_CHECK_EVERY == 0 and bool(torch.all(st["done"])):
+            break
+
+    status = torch.where(
+        st["converged"], Status.SUCCESS.value,
+        torch.where(st["nan_found"], Status.NAN_FOUND.value, Status.MAX_ITER.value),
+    ).to(torch.int32)
+    return {
+        "x12": st["x12"],
+        "y12": st["y12"],
+        "optval": st["optval"][:, 0],
+        "final_iter": st["k"][:, 0],
+        "status": status[:, 0],
+        "rho": st["rho"][:, 0],
+    }
+
+
+def chunk_for(K: int, slots: int) -> int:
+    """Lanes per thread block: the smallest of ``LANE_CHUNKS`` whose blocks
+    all fit the card at once (``slots`` = SMs × resident blocks per SM).
+
+    A block streams A, Aᵀ and Ginv once per iteration whatever its lane
+    count, and is bound by the bytes it keeps in flight, so m and n do not
+    change the choice: more blocks stream more at once, and fewer lanes per
+    block wait less for their slowest lane.  A lane's results do not depend
+    on the choice."""
+    for kc in LANE_CHUNKS:
+        if -(-K // kc) <= slots:
+            return kc
+    return LANE_CHUNKS[-1]
+
+
+def _lib():
+    from pogs_tpu_torch.ops._build import load
+
+    lib = load("fused_admm_batch")
+    if not getattr(lib, "_pogs_typed", False):
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.pogs_batch_sweep.argtypes = ([ci, ci] + [vp] * 14
+                                         + [ci, ci, ci, ci, cd, cd, ci, ci, ci, vp])
+        lib.pogs_batch_sweep.restype = ci
+        lib.pogs_batch_slots.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.pogs_batch_slots.restype = ci
+        lib.pogs_batch_work_elems.argtypes = [ci, ci, ci]
+        lib.pogs_batch_work_elems.restype = ctypes.c_longlong
+        lib.pogs_batch_error_string.argtypes = [ci]
+        lib.pogs_batch_error_string.restype = ctypes.c_char_p
+        lib._pogs_typed = True
+    return lib
+
+
+def _check(lib, rc: int, what: str):
+    if rc != 0:
+        msg = lib.pogs_batch_error_string(rc).decode()
+        raise RuntimeError(f"batched ADMM kernel: {what} failed: {msg} ({rc})")
+
+
+def _slots(lib, device: torch.device, is_double: bool) -> int:
+    key = (device.index, is_double)
+    if key not in _SLOTS:
+        s = ctypes.c_int(0)
+        _check(lib, lib.pogs_batch_slots(int(is_double), device.index, ctypes.byref(s)),
+               "occupancy query")
+        if s.value < 1:
+            raise RuntimeError("batched ADMM kernel: a block does not fit on an SM")
+        _SLOTS[key] = s.value
+    return _SLOTS[key]
+
+
+def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, c_batch, settings,
+            rho0, fb_batch, At):
+    if A.dtype not in _DTYPES:
+        raise TypeError(f"batched ADMM kernel takes float32 or float64, not {A.dtype}")
+    if not fused_admm_supported(settings):
+        raise ValueError("the batched kernel does not support anderson, "
+                         "exact-tol or verbose > 1")
+    dev, dt = A.device, A.dtype
+    m, n = A.shape
+    k = min(m, n)
+    if tuple(Ginv.shape) != (k, k):
+        raise ValueError(f"Ginv has shape {tuple(Ginv.shape)}, expected {(k, k)}")
+    A = A.contiguous()
+    At = A.T.contiguous() if At is None else At.contiguous()
+    if tuple(At.shape) != (n, m):
+        raise ValueError(f"At has shape {tuple(At.shape)}, expected {(n, m)}")
+    Ginv = Ginv.to(dtype=dt).contiguous()
+    for t in (At, Ginv):
+        if t.device != dev or t.dtype != dt:
+            raise ValueError("A, At and Ginv must share device and dtype")
+    h_f, h_g = np.asarray(h_f, np.int32), np.asarray(h_g, np.int32)
+    if h_f.shape != (m,) or h_g.shape != (n,):
+        raise ValueError(f"h codes of shapes {h_f.shape}, {h_g.shape}, expected ({m},), ({n},)")
+    if h_f.size and (h_f.min() < 0 or h_f.max() > 15) or h_g.size and (
+            h_g.min() < 0 or h_g.max() > 15):
+        raise ValueError("h codes must be Function values 0..15")
+    f_l, g_l = _lane_inputs(A, h_f, f_params, h_g, g_params, c_batch, fb_batch)
+    K = g_l.c.shape[0]
+    cb = g_l.c.contiguous()
+    fbb = f_l.b.contiguous() if fb_batch is not None else None
+    # The kernel reads g's c from cb and, with fb_batch, f's b from fbb; their
+    # rows of fp / gp are unused.
+    zm = torch.zeros(m, dtype=dt, device=dev)
+    zn = torch.zeros(n, dtype=dt, device=dev)
+    fp = torch.stack([f_l.a, zm if fbb is not None else f_l.b, f_l.c, f_l.d, f_l.e])
+    gp = torch.stack([g_l.a, g_l.b, zn, g_l.d, g_l.e])
+    hf = torch.as_tensor(h_f, device=dev)
+    hg = torch.as_tensor(h_g, device=dev)
+    scal = torch.stack([torch.as_tensor(rho0, dtype=dt, device=dev).reshape(()),
+                        torch.as_tensor(norm_A, dtype=dt, device=dev).reshape(())])
+
+    lib = _lib()
+    is_double = dt == torch.float64
+    kc = chunk_for(K, _slots(lib, dev, is_double))
+    x12 = torch.empty((K, n), dtype=dt, device=dev)
+    y12 = torch.empty((K, m), dtype=dt, device=dev)
+    stats = torch.empty((K, 4), dtype=dt, device=dev)
+    work = torch.empty(lib.pogs_batch_work_elems(m, n, K), dtype=dt, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.pogs_batch_sweep(
+        int(is_double), dev.index,
+        A.data_ptr(), At.data_ptr(), Ginv.data_ptr(), hf.data_ptr(), fp.data_ptr(),
+        hg.data_ptr(), gp.data_ptr(), cb.data_ptr(),
+        fbb.data_ptr() if fbb is not None else None, scal.data_ptr(),
+        x12.data_ptr(), y12.data_ptr(), stats.data_ptr(), work.data_ptr(),
+        m, n, K, kc, float(settings.abs_tol), float(settings.rel_tol),
+        int(settings.max_iter), int(bool(settings.gap_stop)),
+        int(bool(settings.adaptive_rho)), stream,
+    )
+    _check(lib, rc, "launch")
+    fused_batched_lasso_sweep.launches += 1
+    return {
+        "x12": x12,
+        "y12": y12,
+        "optval": stats[:, 0],
+        "final_iter": stats[:, 1].to(torch.int32),
+        "status": stats[:, 2].to(torch.int32),
+        "rho": stats[:, 3],
+    }
+
+
+def fused_batched_lasso_sweep(A, Ginv, norm_A, h_f, f_params, h_g, g_params,
+                              c_batch, settings: SolverSettings, rho0,
+                              fb_batch=None, At: Optional[torch.Tensor] = None):
+    """Run K lanes of the graph-form solve: lane k with g.c = ``c_batch[k]``
+    ((K, n)) and, when ``fb_batch`` ((K, m)) is given, f.b = ``fb_batch[k]``.
+
+    Inputs are the *scaled* pieces from the solver init, as for
+    :func:`pogs_tpu_torch.ops.fused_admm.fused_admm_loop`: the equilibrated
+    dense ``A``, ``Ginv`` = (Gram + I)⁻¹, ``f_params`` / ``g_params`` the
+    scaled (a, b, c, d, e) tuples (g's c is replaced per lane); ``At``
+    optionally passes a contiguous Aᵀ kept by the caller.  Returns x12
+    (K, n), y12 (K, m), and optval, final_iter, status and rho, each (K,).
+    A CUDA ``A`` runs the kernel; a CPU ``A`` runs
+    :func:`fused_batched_lasso_sweep_ref`.
+    """
+    if A.device.type == "cuda":
+        return _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, c_batch,
+                       settings, rho0, fb_batch, At)
+    if A.device.type == "cpu":
+        return fused_batched_lasso_sweep_ref(A, Ginv, norm_A, h_f, f_params, h_g,
+                                             g_params, c_batch, settings, rho0,
+                                             fb_batch=fb_batch)
+    raise ValueError(f"batched ADMM sweep: unsupported device {A.device}")
+
+
+fused_batched_lasso_sweep.launches = 0

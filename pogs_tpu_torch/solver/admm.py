@@ -10,6 +10,8 @@ constants (the reference's pogs.cpp):
     √imbalance ratio, residual balancing otherwise; ρ changes rescale z̃;
   * the residual-tied projection tolerance ladder;
   * exact-tol mode: residuals in the original (unscaled) space;
+  * optional Anderson acceleration of the (z, z̃) pair (``use_anderson``),
+    its history reset on every ρ rescale;
   * the monotone done latch, and converged / NaN latched at the firing
     iteration.
 
@@ -32,6 +34,7 @@ from typing import Callable
 import torch
 
 from pogs_tpu_torch.types import SolverSettings, Status
+from pogs_tpu_torch.solver.anderson import anderson_init, anderson_step
 
 # Adaptive-rho / over-relaxation constants (pogs.cpp:94-110).  The CUDA solve
 # kernel (csrc/fused_admm.cu) carries the same numbers; keep them in sync.
@@ -62,6 +65,79 @@ def _sum2(v):
     return torch.sum(v * v)
 
 
+def _keep(done, old, new):
+    """``torch.where(done, old, new)`` over a tensor or a tuple of them."""
+    if isinstance(new, tuple):
+        return type(new)(*(_keep(done, o, v) for o, v in zip(old, new)))
+    return torch.where(done, old, new)
+
+
+def rho_schedule_constants(dt, dev, exact_mode: bool = False) -> dict:
+    """The constants of :func:`rho_schedule` for a dtype and mode, made once:
+    a tensor made from a Python number inside the loop is a host-to-device
+    copy per iteration."""
+    f32 = dt == torch.float32
+    return {
+        "rho_min": K_RHO_MIN_F32 if f32 else K_RHO_MIN,
+        "rho_max": K_RHO_MAX_F32 if f32 else K_RHO_MAX,
+        "freq": 10 if exact_mode else K_SPEC_FREQ,
+        "change_min": 0.5 if exact_mode else K_SPEC_CHANGE_MIN,
+        "change_max": 2.0 if exact_mode else K_SPEC_CHANGE_MAX,
+        "imb_thresh": torch.as_tensor(5.0 if exact_mode else K_SPEC_IMB_THRESH,
+                                      dtype=dt, device=dev),
+        "one": torch.ones((), dtype=dt, device=dev),
+        "delta_min": torch.as_tensor(K_DELTA_MIN, dtype=dt, device=dev),
+    }
+
+
+def rho_schedule(k, rho, delta, xi, kd, ku, nrm_r, nrm_s, eps_pri, eps_dua, *,
+                 rho_min, rho_max, freq, change_min, change_max, imb_thresh, one,
+                 delta_min):
+    """One step of the adaptive-ρ schedule (pogs.cpp:401-466): a spectral
+    update every ``freq`` iterations when the residuals are out of balance,
+    residual balancing otherwise.  Elementwise, so it serves one solve or a
+    batch of lanes ((K, 1) tensors) alike.  Returns the new
+    (ρ, z̃ scale, δ, ξ, kd, ku)."""
+    pri_n = nrm_r / eps_pri
+    dua_n = nrm_s / eps_dua
+    spec_slot = (k > 0) & (k % freq == 0) & (eps_pri > 0) & (eps_dua > 0)
+    safe_dua = torch.where(dua_n == 0, torch.ones_like(dua_n), dua_n)
+    imb = pri_n / safe_dua
+    spec_cond = ((pri_n > 0) & (dua_n > 0)
+                 & ((imb > imb_thresh) | (imb < one / imb_thresh)))
+    rho_ratio = torch.clamp(torch.sqrt(imb), change_min, change_max)
+    rho_spec = torch.clamp(rho * rho_ratio, rho_min, rho_max)
+    spec_apply = (spec_slot & spec_cond
+                  & (torch.abs(rho_spec - rho) / rho > K_SPEC_MIN_DELTA))
+
+    kf = k.to(rho.dtype)
+    bal_slot = ~spec_slot
+    s_small = nrm_s < xi * eps_dua
+    r_small = nrm_r < xi * eps_pri
+    bal_up = bal_slot & s_small & ~r_small & (K_TAU * kf > kd)
+    bal_dn = bal_slot & ~s_small & r_small & (K_TAU * kf > ku) & ~bal_up
+    bal_both = bal_slot & s_small & r_small & ~bal_up & ~bal_dn
+    bal_else = bal_slot & ~bal_up & ~bal_dn & ~bal_both
+    up_apply = bal_up & (rho < rho_max)
+    dn_apply = bal_dn & (rho > rho_min)
+
+    rho_new = torch.where(
+        spec_apply, rho_spec,
+        torch.where(up_apply, rho * delta,
+                    torch.where(dn_apply, rho / delta, rho)))
+    zt_scale = torch.where(
+        spec_apply, rho / rho_spec,
+        torch.where(up_apply, one / delta,
+                    torch.where(dn_apply, delta, one)))
+    delta_new = torch.where(
+        up_apply | dn_apply, K_GAMMA * delta,
+        torch.where(bal_else, delta_min, delta))
+    xi_new = torch.where(bal_both, xi * K_KAPPA, xi)
+    ku_new = torch.where(up_apply, kf, ku)
+    kd_new = torch.where(dn_apply, kf, kd)
+    return rho_new, zt_scale, delta_new, xi_new, kd_new, ku_new
+
+
 def admm_loop(
     A,
     norm_A,
@@ -80,8 +156,6 @@ def admm_loop(
     ``z0``/``zt0`` use the packed [x; y] warm-start convention.  Returns a
     dict of scaled-space results plus diagnostics, as the JAX ``admm_loop``.
     """
-    if settings.use_anderson:
-        raise NotImplementedError("Anderson acceleration is not ported yet")
     Ad = A.dense() if hasattr(A, "dense") else A
     m, n = Ad.shape
     dt = Ad.dtype
@@ -103,16 +177,7 @@ def admm_loop(
     proj_pow = T(1.0 if exact_mode else 0.5)
     max_iter = settings.max_iter
     norm_A = T(norm_A)
-    # Constants of the rho schedule, made once: a tensor made from a Python
-    # number inside the loop is a host-to-device copy per iteration.
-    f32 = dt == torch.float32
-    rho_min = K_RHO_MIN_F32 if f32 else K_RHO_MIN
-    rho_max = K_RHO_MAX_F32 if f32 else K_RHO_MAX
-    freq = 10 if exact_mode else K_SPEC_FREQ
-    change_max = 2.0 if exact_mode else K_SPEC_CHANGE_MAX
-    change_min = 0.5 if exact_mode else K_SPEC_CHANGE_MIN
-    imb_thresh = T(5.0 if exact_mode else K_SPEC_IMB_THRESH)
-    delta_min = T(K_DELTA_MIN)
+    sched = rho_schedule_constants(dt, dev, exact_mode)
 
     def body(st):
         xprev, yprev = st["x"], st["y"]
@@ -182,56 +247,35 @@ def admm_loop(
 
         rho_new, delta_new, xi_new, kd_new, ku_new = (
             rho, st["delta"], st["xi"], st["kd"], st["ku"])
+        rho_rescaled = None
         if settings.adaptive_rho:
-            delta, xi, kd, ku = st["delta"], st["xi"], st["kd"], st["ku"]
-
-            pri_n = nrm_r / eps_pri
-            dua_n = nrm_s / eps_dua
-            k_int = st["k"]
-            spec_slot = (k_int > 0) & (k_int % freq == 0) & (eps_pri > 0) & (eps_dua > 0)
-            safe_dua = torch.where(dua_n == 0, torch.ones_like(dua_n), dua_n)
-            imb = pri_n / safe_dua
-            spec_cond = ((pri_n > 0) & (dua_n > 0)
-                         & ((imb > imb_thresh) | (imb < one / imb_thresh)))
-            rho_ratio = torch.clamp(torch.sqrt(imb), change_min, change_max)
-            rho_spec = torch.clamp(rho * rho_ratio, rho_min, rho_max)
-            spec_apply = (spec_slot & spec_cond
-                          & (torch.abs(rho_spec - rho) / rho > K_SPEC_MIN_DELTA))
-
-            kf = k_int.to(dt)
-            bal_slot = ~spec_slot
-            s_small = nrm_s < xi * eps_dua
-            r_small = nrm_r < xi * eps_pri
-            bal_up = bal_slot & s_small & ~r_small & (K_TAU * kf > kd)
-            bal_dn = bal_slot & ~s_small & r_small & (K_TAU * kf > ku) & ~bal_up
-            bal_both = bal_slot & s_small & r_small & ~bal_up & ~bal_dn
-            bal_else = bal_slot & ~bal_up & ~bal_dn & ~bal_both
-            up_apply = bal_up & (rho < rho_max)
-            dn_apply = bal_dn & (rho > rho_min)
-
-            rho_new = torch.where(
-                spec_apply, rho_spec,
-                torch.where(up_apply, rho * delta,
-                            torch.where(dn_apply, rho / delta, rho)))
-            zt_scale = torch.where(
-                spec_apply, rho / rho_spec,
-                torch.where(up_apply, one / delta,
-                            torch.where(dn_apply, delta, one)))
+            rho_new, zt_scale, delta_new, xi_new, kd_new, ku_new = rho_schedule(
+                st["k"], rho, st["delta"], st["xi"], st["kd"], st["ku"],
+                nrm_r, nrm_s, eps_pri, eps_dua, **sched)
             xt_new = xt_new * zt_scale
             yt_new = yt_new * zt_scale
-            delta_new = torch.where(
-                up_apply | dn_apply, K_GAMMA * delta,
-                torch.where(bal_else, delta_min, delta))
-            xi_new = torch.where(bal_both, xi * K_KAPPA, xi)
-            ku_new = torch.where(up_apply, kf, ku)
-            kd_new = torch.where(dn_apply, kf, kd)
+            rho_rescaled = zt_scale != one
+
+        # Anderson acceleration on the (z, z̃) pair; its history is dropped
+        # whenever ρ rescales z̃.
+        if settings.use_anderson:
+            s_prev = torch.cat([xprev, yprev, st["xt"], st["yt"]])
+            s_vec = torch.cat([x_new, y_new, xt_new, yt_new])
+            s_acc, aa = anderson_step(st["aa"], s_prev, s_vec)
+            if rho_rescaled is not None:
+                aa = aa._replace(k=torch.where(rho_rescaled, torch.zeros_like(aa.k), aa.k))
+            use_aa = (st["k"] >= settings.anderson_start) & ~done
+            x_new = torch.where(use_aa, s_acc[:n], x_new)
+            y_new = torch.where(use_aa, s_acc[n:n + m], y_new)
+            xt_new = torch.where(use_aa, s_acc[n + m:2 * n + m], xt_new)
+            yt_new = torch.where(use_aa, s_acc[2 * n + m:], yt_new)
 
         # Freeze post-convergence state (the reference breaks before the
         # dual/rho updates, pogs.cpp:391-394).
         def sel(new, old):
             return torch.where(done, old, new)
 
-        return {
+        new = {
             "x": x_new, "y": y_new,
             "xt": sel(xt_new, st["xt"]), "yt": sel(yt_new, st["yt"]),
             "x12": x12, "y12": y12, "xprev": xprev, "yprev": yprev,
@@ -246,6 +290,9 @@ def admm_loop(
             "eps_pri": eps_pri, "eps_dua": eps_dua, "eps_gap": eps_gap,
             "prev_nrm_r": sel(nrm_r, st["prev_nrm_r"]),
         }
+        if settings.use_anderson:
+            new["aa"] = aa
+        return new
 
     z0 = T(z0)
     zt0 = T(zt0)
@@ -265,11 +312,13 @@ def admm_loop(
         "eps_pri": zero, "eps_dua": zero, "eps_gap": zero,
         "prev_nrm_r": T(torch.finfo(dt).max),
     }
+    if settings.use_anderson:
+        st["aa"] = anderson_init(2 * (m + n), settings.anderson_mem, dt, dev)
 
     for it in range(max_iter):
         new = body(st)
         was_done = st["done"]
-        st = {key: torch.where(was_done, st[key], val) for key, val in new.items()}
+        st = {key: _keep(was_done, st[key], val) for key, val in new.items()}
         if (it + 1) % DONE_CHECK_EVERY == 0 and bool(st["done"]):
             break
 

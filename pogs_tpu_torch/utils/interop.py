@@ -13,12 +13,15 @@ import numpy as np
 import torch
 
 
-def init_state_from_numpy(d: dict, device="cpu") -> dict:
+def init_state_from_numpy(d: dict, device=None) -> dict:
     """Keys ``A``, ``d``, ``e``, ``norm_A`` and ``factor`` (a dict with
     ``op`` and optionally ``s``), as numpy arrays, to tensors of A's dtype
-    on ``device``."""
+    on ``device`` (CUDA by default, as every entry point)."""
+    from pogs_tpu_torch.solver.graph import resolve_device  # graph imports utils
+
     A = np.array(d["A"])
     dt = torch.from_numpy(A).dtype
+    device = resolve_device(A, device)
 
     def t(v):
         return torch.as_tensor(np.array(v), dtype=dt, device=device)

@@ -1,0 +1,205 @@
+"""The port's fused_batched_lasso_sweep against pogs_tpu's Pallas kernel
+(interpret mode on the CPU), on bit-identical scaled inputs.
+
+The JAX package makes the init state (equilibrated A, Ginv, ‖A‖₂) and the
+scaled objective; ``init_state_from_numpy`` carries them over.  On CPU
+tensors the port's wrapper runs the kernel's plain version, an eager loop
+over (K, ·) tensors.  Sizes are those of tests/test_fused.py's batched
+cases.
+
+Tolerances, per lane:
+  * float64: the same status and iteration count, x12 and optval within 1e-9;
+  * float32: the same status, iterations within 2 (sums run in another
+    order in torch's CPU BLAS and in XLA), optval within 1e-4 relative,
+    x12 within 2e-5.
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax
+import jax.numpy as jnp
+
+from pogs_tpu.types import Function as JF, FunctionVector as JFV, SolverSettings as JSet
+from pogs_tpu.prox.vector import scale_f as j_scale_f, scale_g as j_scale_g
+from pogs_tpu.linalg.equil import equilibrate as j_equilibrate
+from pogs_tpu.linalg.norm import norm2_est as j_norm2_est
+from pogs_tpu.projector.direct import DirectProjector as JProj
+from pogs_tpu.ops.fused_admm_batch import fused_batched_lasso_sweep as j_sweep
+
+import pogs_tpu_torch as P
+from pogs_tpu_torch.ops import fused_admm_batch as pb
+from pogs_tpu_torch.utils.interop import init_state_from_numpy
+
+torch.set_num_threads(1)
+
+_NP = {"f32": np.float32, "f64": np.float64}
+TOL = dict(abs_tol=1e-4, rel_tol=1e-3, gap_stop=False)
+
+
+@jax.jit
+def _j_init(A):
+    """The JAX package's init (as its jitted batched front end runs it)."""
+    eq = j_equilibrate(A)
+    return eq.A, eq.d, eq.e, j_norm2_est(eq.A), JProj().init(eq.A, s=1.0)["op"]
+
+
+def _inputs(A, b, g_c, dt, fb_batch=None):
+    """Scaled inputs from the JAX init, for both packages: (jax args, port
+    args).  ``g_c`` is the (K, n) per-lane c of g = ABS; f = SQUARE(b)."""
+    m, n = A.shape
+    eA, ed, ee, nA, Ginv = _j_init(jnp.asarray(A, dt))
+    f = JFV(JF.SQUARE, m, b=b, dtype=dt)
+    g = JFV(JF.ABS, n, dtype=dt)
+    fpar = tuple(jnp.asarray(p, dt) for p in j_scale_f(f, ed).params)
+    gpar = tuple(jnp.asarray(p, dt) for p in j_scale_g(g, ee).params)
+    cb = np.asarray(g_c, dt)
+    jargs = (eA, Ginv, nA, f.h, fpar, g.h, gpar, jnp.asarray(cb))
+    state = init_state_from_numpy({"A": np.asarray(eA), "d": np.asarray(ed),
+                                   "e": np.asarray(ee), "norm_A": np.asarray(nA),
+                                   "factor": {"op": np.asarray(Ginv)}}, device="cpu")
+    pargs = (state["A"], state["factor"]["op"], state["norm_A"], f.h,
+             tuple(torch.tensor(np.asarray(p)) for p in fpar), g.h,
+             tuple(torch.tensor(np.asarray(p)) for p in gpar), torch.tensor(cb))
+    fbj = None if fb_batch is None else jnp.asarray(np.asarray(fb_batch, dt))
+    fbp = None if fb_batch is None else torch.tensor(np.asarray(fb_batch, dt))
+    return jargs, pargs, fbj, fbp
+
+
+def _both(A, b, g_c, st, dt, fb_batch=None):
+    jargs, pargs, fbj, fbp = _inputs(A, b, g_c, dt, fb_batch)
+    ref = j_sweep(*jargs, st, jnp.asarray(1.0, dt), interpret=True, fb_batch=fbj)
+    out = pb.fused_batched_lasso_sweep(*pargs, P.SolverSettings(**vars(st)), 1.0,
+                                       fb_batch=fbp)
+    return ref, out
+
+
+def _assert_match(ref, out, dtype):
+    it_r = np.asarray(ref["final_iter"])
+    it_o = out["final_iter"].numpy()
+    np.testing.assert_array_equal(out["status"].numpy(), np.asarray(ref["status"]))
+    if dtype == "f64":
+        np.testing.assert_array_equal(it_o, it_r)
+        np.testing.assert_allclose(out["optval"].numpy(), np.asarray(ref["optval"]),
+                                   rtol=0, atol=1e-9)
+        atol = 1e-9
+    else:
+        assert np.max(np.abs(it_o - it_r)) <= 2
+        np.testing.assert_allclose(out["optval"].numpy(), np.asarray(ref["optval"]),
+                                   rtol=1e-4)
+        atol = 2e-5
+    np.testing.assert_allclose(out["x12"].numpy(), np.asarray(ref["x12"]), atol=atol)
+    np.testing.assert_allclose(out["y12"].numpy(), np.asarray(ref["y12"]), atol=atol)
+    for key in ("optval", "rho"):
+        assert out[key].shape == (it_o.shape[0],)
+
+
+def _sweep(seed, m, n, K, hi, lo):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n))
+    b = rng.standard_normal(m)
+    lam_max = float(np.max(np.abs(A.T @ b)))
+    lams = np.geomspace(hi, lo, K) * lam_max
+    return A, b, np.repeat(lams[:, None], n, axis=1)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_batch_kernel_tall(dtype):
+    A, b, cb = _sweep(0, 100, 60, 10, 0.5, 0.1)
+    ref, out = _both(A, b, cb, JSet(**TOL), _NP[dtype])
+    _assert_match(ref, out, dtype)
+    assert (out["status"] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_batch_kernel_wide(dtype):
+    A, b, cb = _sweep(11, 40, 90, 6, 0.6, 0.2)
+    ref, out = _both(A, b, cb, JSet(**TOL), _NP[dtype])
+    _assert_match(ref, out, dtype)
+
+
+@pytest.mark.parametrize("ladder", [False, True], ids=["shared_c", "lambda_ladder"])
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_batch_kernel_multi_rhs(dtype, ladder):
+    rng = np.random.default_rng(3)
+    m, n, K = 40, 20, 6
+    A = rng.standard_normal((m, n))
+    B = rng.standard_normal((K, m))
+    lams = np.linspace(0.5, 0.1, K) if ladder else np.full(K, 0.3)
+    ref, out = _both(A, np.zeros(m), np.repeat(lams[:, None], n, axis=1),
+                     JSet(abs_tol=1e-5, rel_tol=1e-5), _NP[dtype], fb_batch=B)
+    _assert_match(ref, out, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_batch_kernel_instant_convergence_optval(dtype):
+    """λ ≥ λ_max drives x* = 0 on the first lanes, which converge at once:
+    their optval is the objective of the firing iterate, not the 0.0 the
+    latch starts from."""
+    rng = np.random.default_rng(21)
+    m, n, K = 60, 40, 8
+    A = rng.standard_normal((m, n))
+    b = rng.standard_normal(m)
+    lam_max = float(np.max(np.abs(A.T @ b)))
+    lams = np.array([10 * lam_max, 5 * lam_max]
+                    + list(np.geomspace(0.5, 0.1, K - 2) * lam_max))
+    ref, out = _both(A, b, np.repeat(lams[:, None], n, axis=1), JSet(**TOL), _NP[dtype])
+    _assert_match(ref, out, dtype)
+    assert float(out["optval"][0]) > 0.1
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_batch_kernel_max_iter(dtype):
+    A, b, cb = _sweep(5, 60, 40, 5, 0.5, 0.1)
+    ref, out = _both(A, b, cb, JSet(max_iter=5), _NP[dtype])
+    _assert_match(ref, out, dtype)
+    assert (out["status"] == int(P.Status.MAX_ITER)).all()
+    assert (out["final_iter"] == 4).all()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_batch_kernel_chunk_independence(dtype):
+    """A lane's results do not depend on the other lanes of its batch: the
+    first 3 of 10 lanes against a 3-lane run of the same λ."""
+    A, b, cb = _sweep(0, 100, 60, 10, 0.5, 0.1)
+    _, pargs, _, _ = _inputs(A, b, cb, _NP[dtype])
+    st = P.SolverSettings(**TOL)
+    full = pb.fused_batched_lasso_sweep(*pargs, st, 1.0)
+    part = pb.fused_batched_lasso_sweep(*pargs[:-1], pargs[-1][:3], st, 1.0)
+    atol = 1e-9 if dtype == "f64" else 2e-5
+    assert torch.equal(part["status"], full["status"][:3])
+    assert torch.equal(part["final_iter"], full["final_iter"][:3])
+    np.testing.assert_allclose(part["x12"].numpy(), full["x12"][:3].numpy(), atol=atol)
+    np.testing.assert_allclose(part["optval"].numpy(), full["optval"][:3].numpy(),
+                               rtol=1e-9 if dtype == "f64" else 1e-5)
+
+
+def test_batch_wrapper_checks_and_raises():
+    """Malformed input is refused; a CUDA launch where there is no CUDA
+    raises, and nothing runs the plain version in its place."""
+    A, b, cb = _sweep(0, 12, 8, 3, 0.5, 0.1)
+    _, pargs, _, _ = _inputs(A, b, cb, np.float32)
+    st = P.SolverSettings()
+    before = pb.fused_batched_lasso_sweep.launches
+    with pytest.raises(ValueError):
+        pb.fused_batched_lasso_sweep(*pargs[:-1], pargs[-1][:, :5], st, 1.0)
+    with pytest.raises(ValueError):
+        pb.fused_batched_lasso_sweep(*pargs, st, 1.0, fb_batch=torch.zeros(2, 12))
+    with pytest.raises(ValueError):
+        pb._launch(*pargs, st.replace(use_anderson=True), 1.0, None, None)
+    with pytest.raises(ValueError):
+        pb.fused_batched_lasso_sweep(pargs[0].to("meta"), *pargs[1:], st, 1.0)
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            pb._launch(*pargs, st, 1.0, None, None)
+    assert pb.fused_batched_lasso_sweep.launches == before
+
+
+def test_chunk_rule():
+    """The smallest lane count per block whose blocks fit the card at once."""
+    assert pb.chunk_for(128, 132) == 1
+    assert pb.chunk_for(132, 132) == 1
+    assert pb.chunk_for(133, 132) == 2
+    assert pb.chunk_for(500, 132) == 4
+    assert pb.chunk_for(10_000, 132) == 8
+    assert pb.chunk_for(1, 1) == 1

@@ -1,11 +1,13 @@
-"""The fused solve kernel on the card against its plain version.
+"""The solve kernel and the batched kernel on the card against their plain
+versions.
 
 Marked ``cuda``: every test skips where torch sees no CUDA device.  On a
 machine with one:  python -m pytest tests/test_torch_cuda.py -q
 
-Tolerances, kernel against the eager loop on the same card and inputs: the
-same status, iterations within 2 (the kernel sums in another order),
-optval within 1e-4 relative, x12 and z within 5e-5·max(1, ‖·‖∞).
+Tolerances, kernel against its plain version on the same card and inputs
+(per lane for the batched kernel): the same status, iterations within 2
+(the kernel sums in another order), optval within 1e-4 relative, x12 and z
+within 5e-5·max(1, ‖·‖∞).
 """
 
 import numpy as np
@@ -14,6 +16,8 @@ import torch
 
 import pogs_tpu_torch as P
 from pogs_tpu_torch.ops import fused_admm as pf
+from pogs_tpu_torch.ops import fused_admm_batch as pb
+from pogs_tpu_torch.parallel import batched_graph_solve
 
 pytestmark = pytest.mark.cuda
 
@@ -70,3 +74,63 @@ def test_main_path_launches_kernel_once_per_solve(cuda):
     r = P.solve_lasso(A, b, 0.2 * float(np.max(np.abs(A.T @ b))))
     assert pf.fused_admm_loop.launches == before + 1
     assert r["status"] == int(P.Status.SUCCESS)
+
+
+def _sweep_args(cuda, shape, dtype, K, seed=7):
+    rng = np.random.default_rng(seed)
+    m, n = shape
+    A = rng.standard_normal(shape)
+    b = rng.standard_normal(m)
+    lam_max = float(np.max(np.abs(A.T @ b)))
+    f = P.FunctionVector(P.Function.SQUARE, m, b=b)
+    g = P.FunctionVector(P.Function.ABS, n)
+    st, f_s, g_s = _inputs(A, f, g, dtype)
+    lams = np.geomspace(0.5, 0.1, K) * lam_max
+    cb = torch.tensor(np.repeat(lams[:, None], n, axis=1), dtype=dtype, device=cuda)
+    return (st["A"], st["factor"]["op"], st["norm_A"], f.h, tuple(f_s.params), g.h,
+            tuple(g_s.params), cb, P.SolverSettings(max_iter=500), 1.0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(60, 40), (30, 70)], ids=["tall", "wide"])
+def test_batch_kernel_matches_plain(cuda, shape, dtype):
+    args = _sweep_args(cuda, shape, dtype, 6)
+    before = pb.fused_batched_lasso_sweep.launches
+    out = pb.fused_batched_lasso_sweep(*args)
+    ref = pb.fused_batched_lasso_sweep_ref(*args)
+    torch.cuda.synchronize()
+    assert pb.fused_batched_lasso_sweep.launches == before + 1
+    assert torch.equal(out["status"], ref["status"])
+    assert int((out["final_iter"] - ref["final_iter"]).abs().max()) <= 2
+    rel = (out["optval"] - ref["optval"]).abs() / ref["optval"].abs().clamp(min=1e-12)
+    assert float(rel.max()) <= 1e-4
+    lim = 5e-5 * max(1.0, float(ref["x12"].abs().max()))
+    assert float((out["x12"] - ref["x12"]).abs().max()) <= lim
+
+
+def test_batched_graph_solve_launches_the_batch_kernel_once(cuda):
+    rng = np.random.default_rng(1)
+    A = rng.standard_normal((80, 50)).astype(np.float32)
+    b = rng.standard_normal(80).astype(np.float32)
+    lams = np.geomspace(0.5, 0.1, 12) * float(np.max(np.abs(A.T @ b)))
+    before_k2, before_k1 = pb.fused_batched_lasso_sweep.launches, pf.fused_admm_loop.launches
+    r = batched_graph_solve(A, P.FunctionVector(P.Function.SQUARE, 80, b=b),
+                            P.FunctionVector(P.Function.ABS, 50), lams)
+    assert pb.fused_batched_lasso_sweep.launches == before_k2 + 1
+    assert pf.fused_admm_loop.launches == before_k1
+    assert (r["status"] == 0).all() and r["x"].shape == (12, 50)
+
+
+def test_batch_results_do_not_depend_on_lanes_per_block(cuda, monkeypatch):
+    """Every lane's sums run in one fixed order whatever the block holds, so
+    Kc = 1, 2, 4 and 8 give bit-identical lanes (the last block of 13
+    lanes is short for each)."""
+    args = _sweep_args(cuda, (60, 40), torch.float32, 13)
+    outs = []
+    for kc in pb.LANE_CHUNKS:
+        monkeypatch.setattr(pb, "chunk_for", lambda K, slots, kc=kc: kc)
+        outs.append(pb.fused_batched_lasso_sweep(*args))
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for key in ("x12", "y12", "optval", "final_iter", "status", "rho"):
+            assert torch.equal(out[key], outs[0][key]), key

@@ -63,7 +63,8 @@ def _both(A, f_spec, g_spec, st, dt):
 
     state = init_state_from_numpy({"A": np.asarray(eq.A), "d": np.asarray(eq.d),
                                    "e": np.asarray(eq.e), "norm_A": np.asarray(nA),
-                                   "factor": {"op": np.asarray(fac["op"])}})
+                                   "factor": {"op": np.asarray(fac["op"])}},
+                                  device="cpu")
     tz = torch.zeros(m + n, dtype=state["A"].dtype)
     out = pf.fused_admm_loop(
         state["A"], state["factor"]["op"], state["norm_A"],
@@ -149,7 +150,7 @@ def test_fused_warm_lambda_path(rng7, dtype):
                 "e": np.asarray(init["e"]), "norm_A": np.asarray(init["norm_A"]),
                 "factor": {"op": np.asarray(init["factor"]["op"])}}
     ps = P.GraphFormSolver(A, dtype=dt, device="cpu", settings=_psettings(st))
-    ps.load_init_state(init_state_from_numpy(exported))
+    ps.load_init_state(init_state_from_numpy(exported, device="cpu"))
     f_j = JFV(JF.SQUARE, 40, b=b, dtype=dt)
     f_p = P.FunctionVector(P.Function.SQUARE, 40, b=b, dtype=dt)
     seq_j, seq_p = [], []
@@ -220,7 +221,8 @@ def test_use_fused_gates():
 
 
 def test_cuda_source_names_every_function_code():
-    src = open(os.path.join(ROOT, "pogs_tpu_torch", "csrc", "fused_admm.cu")).read()
+    # The prox library of both kernels lives in one shared header.
+    src = open(os.path.join(ROOT, "pogs_tpu_torch", "csrc", "prox.cuh")).read()
     enum = dict(re.findall(r"\b([A-Z0-9]+) = (\d+)", src.split("enum Fn")[1].split("};")[0]))
     assert {k: int(v) for k, v in enum.items()} == {f.name: int(f) for f in P.Function}
     for fn_name in ("prox_base", "func_base"):

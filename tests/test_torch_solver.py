@@ -65,7 +65,7 @@ def _export(js):
         "A": np.asarray(init["A"].dense()), "d": np.asarray(init["d"]),
         "e": np.asarray(init["e"]), "norm_A": np.asarray(init["norm_A"]),
         "factor": {"op": np.asarray(init["factor"]["op"])},
-    })
+    }, device="cpu")
 
 
 @pytest.mark.parametrize("method", ["inverse", "cholesky"])
@@ -113,10 +113,11 @@ def test_solver_front_end_contract():
     with pytest.raises(ValueError):
         P.GraphFormSolver(A0, device="cpu").solve(
             P.FunctionVector(P.Function.SQUARE, M - 1), P.FunctionVector(P.Function.ABS, N))
-    with pytest.raises(NotImplementedError):
-        P.GraphFormSolver(A0, device="cpu").solve(
-            P.FunctionVector(P.Function.SQUARE, M), P.FunctionVector(P.Function.ABS, N),
-            settings=P.SolverSettings(use_anderson=True))
+    # Anderson acceleration runs in the eager loop (the kernels refuse it).
+    r = P.GraphFormSolver(A0, device="cpu").solve(
+        P.FunctionVector(P.Function.SQUARE, M, b=B0), P.FunctionVector(P.Function.ABS, N, c=LAM),
+        settings=P.SolverSettings(use_anderson=True))
+    assert r.status == P.Status.SUCCESS
     with pytest.raises(NotImplementedError):
         P.GraphFormSolver(torch.eye(3).to_sparse(), device="cpu")
     # dtype follows the input: float64 numpy -> float64, float32 -> float32.

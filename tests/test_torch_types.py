@@ -34,7 +34,7 @@ def test_settings_defaults_match():
 
 
 def test_import_pulls_in_no_jax():
-    code = ("import sys, pogs_tpu_torch; "
+    code = ("import sys, pogs_tpu_torch, pogs_tpu_torch.parallel; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'pogs_tpu' or m.startswith('pogs_tpu.')]; "
             "assert not bad, bad")
