@@ -1,4 +1,4 @@
-"""pogs_tpu_torch — the graph-form ADMM solver on PyTorch and CUDA.
+"""pogs_tpu_torch — the graph-form and cone-form solvers on PyTorch and CUDA.
 
 The PyTorch port of ``pogs_tpu``, for NVIDIA Hopper GPUs.  It solves
 problems in *graph form*
@@ -6,9 +6,17 @@ problems in *graph form*
     minimize    f(y) + g(x)       (f, g separable)
     subject to  y = A x
 
-by ADMM with closed-form proximal operators.  On a CUDA device a dense solve
-runs as one hand-written CUDA kernel (``ops/fused_admm.py``); elsewhere it
-runs as an eager torch loop.  This package imports torch and numpy only.
+by ADMM with closed-form proximal operators, and problems in *cone form*
+
+    minimize    c'x
+    subject to  b − A x ∈ K_y,   x ∈ K_x
+
+by Douglas–Rachford on the homogeneous self-dual embedding (K_x empty) or
+by the graph-form loop with the cone objective.  On a CUDA device a dense
+solve runs as one hand-written CUDA kernel (``ops/fused_admm.py`` for the
+graph form, ``ops/fused_hsde.py`` for the cone form) and a λ-sweep as
+another (``ops/fused_admm_batch.py``); elsewhere they run as eager torch
+loops.  This package imports torch and numpy only.
 """
 
 from pogs_tpu_torch.types import (
@@ -16,10 +24,12 @@ from pogs_tpu_torch.types import (
     FunctionObj,
     FunctionVector,
     Cone,
+    ConeConstraint,
     Status,
     SolverSettings,
     SolverResult,
 )
+from pogs_tpu_torch.cones.sets import ConeSet
 from pogs_tpu_torch.prox import prox_eval, func_eval, proj_subgrad_eval
 from pogs_tpu_torch.solver import GraphFormSolver, admm_solve
 from pogs_tpu_torch.api.graph import (
@@ -32,6 +42,8 @@ from pogs_tpu_torch.api.graph import (
     solve_svm,
     solve_nonneg_ls,
 )
+from pogs_tpu_torch.solver.cone import ConeSolver
+from pogs_tpu_torch.api.cone import solve_cone, solve_cone_problem, dims_to_cones
 from pogs_tpu_torch.utils.interop import init_state_from_numpy
 
 __version__ = "0.1.0"
@@ -41,6 +53,8 @@ __all__ = [
     "FunctionObj",
     "FunctionVector",
     "Cone",
+    "ConeConstraint",
+    "ConeSet",
     "Status",
     "SolverSettings",
     "SolverResult",
@@ -57,5 +71,9 @@ __all__ = [
     "solve_huber",
     "solve_svm",
     "solve_nonneg_ls",
+    "ConeSolver",
+    "solve_cone",
+    "solve_cone_problem",
+    "dims_to_cones",
     "init_state_from_numpy",
 ]

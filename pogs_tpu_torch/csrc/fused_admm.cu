@@ -30,20 +30,18 @@
 // API), and phases are separated by cooperative_groups grid syncs.
 //
 // Determinism across blocks: every scalar decision (near, converged, the
-// rho update, done) must be identical in every block.  Each block writes
-// its partial sums to a global scratch array; after the grid sync every
-// block reduces all partials in the same fixed order, so all blocks compute
-// bit-identical scalars and leave the loop on the same iteration.  There
-// are no atomics on floats.  All state and scratch are allocated by the
-// caller; the kernel allocates nothing.  Values written by other blocks
-// inside the kernel are read with __ldcg (through L2, never a stale L1).
+// rho update, done) must be identical in every block; the fixed-order
+// reductions of coop.cuh (shared with the cone kernel, fused_hsde.cu) give
+// every block bit-identical scalars, so all leave the loop on the same
+// iteration.  All state and scratch are allocated by the caller; the kernel
+// allocates nothing.
 
 #include <cfloat>
 #include <cstdint>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include "prox.cuh"
+#include "coop.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -51,63 +49,7 @@ namespace {
 
 using namespace pogs;
 
-constexpr int kThreads = 512;
-constexpr int kWarps = kThreads / 32;
 constexpr int kSlots = 16;  // partial-sum slots per block
-
-// ---------------------------------------------------------------------------
-// Reductions.
-// ---------------------------------------------------------------------------
-
-// Reduce NS per-thread values over the block (fixed order) and write them to
-// partials[(slot0 + s) * G + blockIdx.x].
-template <typename T, int NS>
-__device__ void block_partials(const T (&v)[NS], T* partials, int slot0, T* smem) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int s = 0; s < NS; ++s) {
-    T w = warp_sum(v[s]);
-    if (lane == 0) smem[s * kWarps + warp] = w;
-  }
-  __syncthreads();
-  if (threadIdx.x < NS) {
-    T acc = T(0);
-    for (int w = 0; w < kWarps; ++w) acc += smem[threadIdx.x * kWarps + w];
-    partials[(slot0 + threadIdx.x) * gridDim.x + blockIdx.x] = acc;
-  }
-  __syncthreads();
-}
-
-// After a grid sync: every block sums slot0..slot0+ns-1 over all blocks, in
-// the same order, into red[slot].  Warp s reduces slot0 + s.
-template <typename T>
-__device__ void grid_partials(const T* partials, int slot0, int ns, T* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (warp < ns) {
-    const T* p = partials + (slot0 + warp) * gridDim.x;
-    T acc = T(0);
-    for (int b = lane; b < (int)gridDim.x; b += 32) acc += __ldcg(p + b);
-    acc = warp_sum(acc);
-    if (lane == 0) red[slot0 + warp] = acc;
-  }
-  __syncthreads();
-}
-
-// Dot product of a read-only matrix row with a vector written in-kernel,
-// by one warp; the result is valid in every lane.
-template <typename T>
-__device__ __forceinline__ T warp_dot(const T* __restrict__ row, const T* vec, int len, int lane) {
-  T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
-  int j = lane;
-  for (; j + 96 < len; j += 128) {
-    a0 += row[j] * __ldcg(vec + j);
-    a1 += row[j + 32] * __ldcg(vec + j + 32);
-    a2 += row[j + 64] * __ldcg(vec + j + 64);
-    a3 += row[j + 96] * __ldcg(vec + j + 96);
-  }
-  for (; j < len; j += 32) a0 += row[j] * __ldcg(vec + j);
-  return warp_sum((a0 + a1) + (a2 + a3));
-}
 
 template <typename T> struct Params {
   const T* A;      // (m, n) row-major, equilibrated

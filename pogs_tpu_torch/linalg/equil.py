@@ -4,7 +4,10 @@ Counterpart of ``pogs_tpu/linalg/equil.py``:
 
   1. B = A ∘ A (2-norm equilibration).
   2. 50 Sinkhorn–Knopp sweeps on B with a regularizing constant, on the
-     effective row/column counts, with zero rows/columns pinned to scale 1.
+     effective row/column counts, with zero rows/columns pinned to scale 1;
+     optional ``constrain_d`` / ``constrain_e`` hooks act on each sweep's
+     accumulations (the cone solver averages them within a non-separable
+     cone, so the scaling is uniform inside it).
   3. d ← √d, e ← √e; A ← diag(d) · A · diag(e).
   4. Normalize: ‖A‖_F / √min(m,n) = 1, folding √normA into both d and e.
 """
@@ -12,6 +15,7 @@ Counterpart of ``pogs_tpu/linalg/equil.py``:
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable, Optional
 
 import torch
 
@@ -30,10 +34,15 @@ class EquilResult:
     e: torch.Tensor
 
 
-def sinkhorn_knopp(bm, brm, m: int, n: int, dt, device, iters: int = EQUIL_ITERS):
+def sinkhorn_knopp(bm, brm, m: int, n: int, dt, device, iters: int = EQUIL_ITERS,
+                   constrain_d: Optional[Callable] = None,
+                   constrain_e: Optional[Callable] = None):
     """Modified Sinkhorn–Knopp on a nonnegative operator (bm = B@, brm = Bᵀ@).
 
-    Alternates e ← m_eff / (Bᵀ d + reg_e) and d ← n_eff / (B e + reg_d).
+    Alternates e ← m_eff / (Bᵀ d + reg_e) and d ← n_eff / (B e + reg_d).  The
+    hooks act on the accumulations after the zero rows and columns are
+    pinned to the neutral value, so a cone that holds a zero row (the radius
+    row of an SOC ball) still gets one uniform scale.
     """
     row_mass = bm(torch.ones(n, dtype=dt, device=device))
     col_mass = brm(torch.ones(m, dtype=dt, device=device))
@@ -46,15 +55,19 @@ def sinkhorn_knopp(bm, brm, m: int, n: int, dt, device, iters: int = EQUIL_ITERS
 
     d = torch.ones(m, dtype=dt, device=device)
     e = torch.ones(n, dtype=dt, device=device)
+    cd = constrain_d if constrain_d is not None else (lambda v: v)
+    ce = constrain_e if constrain_e is not None else (lambda v: v)
     for _ in range(iters):
         acc_e = torch.where(col_live, brm(d) + reg_e, m_eff)
-        e = m_eff / acc_e
+        e = m_eff / ce(acc_e)
         acc_d = torch.where(row_live, bm(e) + reg_d, n_eff)
-        d = n_eff / acc_d
+        d = n_eff / cd(acc_d)
     return d, e
 
 
-def equilibrate(A, iters: int = EQUIL_ITERS) -> EquilResult:
+def equilibrate(A, constrain_d: Optional[Callable] = None,
+                constrain_e: Optional[Callable] = None,
+                iters: int = EQUIL_ITERS) -> EquilResult:
     """Full equilibration pipeline. ``A`` is a tensor or a DenseMatrix; the
     returned ``EquilResult.A`` is of the same kind."""
     is_op = isinstance(A, DenseMatrix)
@@ -63,7 +76,7 @@ def equilibrate(A, iters: int = EQUIL_ITERS) -> EquilResult:
     dt = At.dtype
     B = At * At
     d, e = sinkhorn_knopp(lambda v: torch.mv(B, v), lambda v: torch.mv(B.T, v),
-                          m, n, dt, At.device, iters)
+                          m, n, dt, At.device, iters, constrain_d, constrain_e)
     d = torch.sqrt(d)
     e = torch.sqrt(e)
     A_eq = At * d[:, None] * e[None, :]

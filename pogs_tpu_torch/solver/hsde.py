@@ -1,0 +1,521 @@
+"""Homogeneous self-dual embedding (HSDE) cone solver, as an eager torch loop.
+
+Counterpart of ``pogs_tpu/solver/hsde.py``.  Solves
+
+    minimize    c'x
+    subject to  b − A x ∈ K_y,   x free
+
+by Douglas–Rachford splitting on the embedding u = [x; y; τ]:
+
+    w   = (I + Q)^{-1} u              (Q the skew HSDE operator)
+    z   = Π_{R^n × K_y* × R_+}(2w − u)
+    u  += α (z − w)
+
+with adaptive over-relaxation α ∈ [1.0, 1.7], the primal / dual / gap test
+every 10 iterations, and the infeasibility / unboundedness certificates of
+the τ → 0 branch, classified by dominance and confirmed by a second firing
+at a tighter fixed-point residual.  The same constants as the JAX package.
+
+Linear solvers for (I + Q) w = u, each factored once:
+  * ``smw``    — Sherman–Morrison–Woodbury through the Gram inverse
+                 (I + AᵀA)⁻¹ (or a caller's ``apply``, e.g. Woodbury through
+                 the m×m inverse of a wide A);
+  * ``direct`` — Cholesky of the normal equations MᵀM + δI (M = I + Q) with
+                 two refinement steps, for small embeddings.
+The matrix-free ``cg`` strategy serves sparse and CGLS problems, which come
+with the sparse slice of the port; it raises ``NotImplementedError``.
+
+The loop keeps no host in it: the state freezes once ``done`` is set
+(``torch.where``), the host reads ``done`` once per check (every 10
+iterations), and both branches of the τ test are evaluated and the right
+one selected.  The host knows the iteration number, which equals the
+device's ``k`` until ``done``, so the check runs only on its own
+iterations.  The interior-point polish (``polish=True``) runs a Mehrotra
+predictor–corrector burst every 250 iterations (1000 beyond the standard
+size caps) on separable-only tall LPs, and adopts the point only if it
+passes the full convergence test.
+
+This loop with ``strategy="smw"`` and no polish is the plain version of the
+CUDA cone kernel (``ops/fused_hsde.py``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from pogs_tpu_torch.types import Status
+from pogs_tpu_torch.cones.sets import ConeSet
+from pogs_tpu_torch.solver.anderson import anderson_init, anderson_step
+
+K_ALPHA_MIN = 1.0
+K_ALPHA_MAX = 1.7
+K_ALPHA_GROW = 1.02
+K_TAU_TOL = 1e-8
+K_TAU_REL = 1e-6      # τ/‖w‖ below this marks a certificate ray
+K_KAPPA_TOL = 1e-6
+K_CHECK_EVERY = 10
+K_CERT_CROSS = 0.1    # the competing certificate must be 10x weaker
+K_CERT_CONFIRM = 0.25  # a certificate confirms at fp ≤ 0.25·fp_tol
+# Interior-point polish cadence and size caps (the dense Cholesky variant;
+# the XL caps run the same burst on a sparser cadence).
+K_POLISH_START = 250
+K_POLISH_EVERY = 250
+K_POLISH_IPM_STEPS = 10
+K_POLISH_MAX_N = 2048
+K_POLISH_MAX_M = 16384
+K_POLISH_XL_MAX_N = 8192
+K_POLISH_XL_MAX_M = 120_000
+K_POLISH_XL_EVERY = 1000
+K_POLISH_XL_STEPS = 6
+# Beyond the XL caps the JAX package polishes matrix-free (Jacobi-PCG on
+# A'DA), which comes with the sparse slice.
+K_POLISH_CG_MAX_N = 50_000
+K_POLISH_CG_MAX_M = 400_000
+
+_SPARSE_SLICE = "slice 3 (sparse and indirect)"
+
+
+def _nrm(v):
+    return torch.linalg.vector_norm(v)
+
+
+def _sum2(v):
+    return torch.sum(v * v)
+
+
+def _dense(A):
+    return A.dense() if hasattr(A, "dense") else A
+
+
+def make_q_matvec(A, b, c):
+    """Q [x;y;τ] = [Aᵀy + cτ; −Ax + bτ; −cᵀx − bᵀy] and Qᵀ, packed form."""
+    m, n = _dense(A).shape
+    q, qt = _q_apply_split(A, b, c)
+
+    def q_matvec(u):
+        top, mid, bot = q(u[:n], u[n:n + m], u[n + m])
+        return torch.cat([top, mid, bot[None]])
+
+    def qt_matvec(u):
+        top, mid, bot = qt(u[:n], u[n:n + m], u[n + m])
+        return torch.cat([top, mid, bot[None]])
+
+    return q_matvec, qt_matvec
+
+
+def _q_apply_split(A, b, c):
+    """Split-form Q and Qᵀ: (x, y, τ) → (x', y', τ')."""
+    Ad = _dense(A)
+
+    def q(x, y, tau):
+        return (torch.mv(Ad.T, y) + c * tau, -torch.mv(Ad, x) + b * tau,
+                -torch.dot(c, x) - torch.dot(b, y))
+
+    def qt(x, y, tau):
+        return (-torch.mv(Ad.T, y) - c * tau, torch.mv(Ad, x) - b * tau,
+                torch.dot(c, x) + torch.dot(b, y))
+
+    return q, qt
+
+
+def smw_setup(A, b, c):
+    """Factor M = [I, Aᵀ; −A, I] by elimination: K = I + AᵀA and its inverse,
+    then t = M⁻¹h and s_den = 1 + hᵀt for the rank-1 τ coupling."""
+    Ad = _dense(A)
+    n = Ad.shape[1]
+    eye = torch.eye(n, dtype=Ad.dtype, device=Ad.device)
+    L = torch.linalg.cholesky(eye + Ad.T @ Ad)
+    Linv = torch.linalg.solve_triangular(L, eye, upper=False)
+    Kinv = Linv.T @ Linv
+    t_x = torch.mv(Kinv, c - torch.mv(Ad.T, b))
+    t_y = b + torch.mv(Ad, t_x)
+    s_den = 1.0 + torch.dot(c, t_x) + torch.dot(b, t_y)
+    return {"Kinv": Kinv, "t_x": t_x, "t_y": t_y, "s_den": s_den}
+
+
+def _smw_solve_split(factor, A, b, c, ux, uy, ut):
+    """(I + Q)⁻¹ u by SMW back-substitution, split form.  ``factor`` may
+    carry an ``apply`` callable for (I + AᵀA)⁻¹."""
+    Ad = _dense(A)
+    apply_kinv = factor.get("apply") or (lambda v: torch.mv(factor["Kinv"], v))
+    p_x = apply_kinv(ux - torch.mv(Ad.T, uy))
+    p_y = uy + torch.mv(Ad, p_x)
+    h_dot_p = torch.dot(c, p_x) + torch.dot(b, p_y)
+    u_tau = (ut + h_dot_p) / factor["s_den"]
+    return p_x - factor["t_x"] * u_tau, p_y - factor["t_y"] * u_tau, u_tau
+
+
+def smw_solve(factor, A, b, c, u):
+    """Packed-vector wrapper around the split SMW solve."""
+    m, n = _dense(A).shape
+    wx, wy, wt = _smw_solve_split(factor, A, b, c, u[:n], u[n:n + m], u[n + m])
+    return torch.cat([wx, wy, wt[None]])
+
+
+def dense_q(A, b, c):
+    """Materialize I + Q (dim × dim)."""
+    Ad = _dense(A)
+    m, n = Ad.shape
+    dim = n + m + 1
+    M = torch.eye(dim, dtype=Ad.dtype, device=Ad.device)
+    M[:n, n:n + m] = Ad.T
+    M[n:n + m, :n] = -Ad
+    M[:n, n + m] = c
+    M[n:n + m, n + m] = b
+    M[n + m, :n] = -c
+    M[n + m, n:n + m] = -b
+    return M
+
+
+def polish_plan(Ky: ConeSet, m: int, n: int, polish: bool):
+    """(start, every, steps) of the interior-point polish ``hsde_solve`` runs
+    on this problem, or None: it runs with polish on, only Zero / NonNeg /
+    NonPos cones, m ≥ n, and within the Cholesky variant's size caps.
+    Beyond them, where the JAX package polishes matrix-free, this raises."""
+    if not (polish and Ky.is_separable_only and m >= n):
+        return None
+    if m <= K_POLISH_MAX_M and n <= K_POLISH_MAX_N:
+        return K_POLISH_START, K_POLISH_EVERY, K_POLISH_IPM_STEPS
+    if m <= K_POLISH_XL_MAX_M and n <= K_POLISH_XL_MAX_N:
+        return K_POLISH_XL_EVERY, K_POLISH_XL_EVERY, K_POLISH_XL_STEPS
+    z_m, _, _ = Ky.separable_masks()
+    if not z_m.any() and m <= K_POLISH_CG_MAX_M and n <= K_POLISH_CG_MAX_N:
+        raise NotImplementedError(
+            f"the matrix-free polish for a {m}x{n} LP comes with {_SPARSE_SLICE}; "
+            "pass polish=False")
+    return None
+
+
+def _make_polish(A, b, c, Ky, Ky_dual, plan, abs_tol, rel_tol, sqm, sqn, b_norm, c_norm):
+    """The polish burst: from the DR point (x_s, y_s, s_s), ``steps`` damped
+    Mehrotra predictor–corrector steps on the LP in the sign-flipped space
+    where every inequality row is NonNeg (Zero rows carry a large barrier
+    weight, free rows weight 0).  Returns (ok, x, y, r_pri, r_dua, gap)."""
+    Ad = _dense(A)
+    m, n = Ad.shape
+    dt, dev = Ad.dtype, Ad.device
+    _, _, steps = plan
+    z_m, nn_m, np_m = Ky.separable_masks()
+    p_zero = torch.as_tensor(z_m, device=dev)
+    p_ineq = torch.as_tensor(nn_m | np_m, device=dev)
+    p_sgn = torch.where(torch.as_tensor(np_m, device=dev),
+                        torch.tensor(-1.0, dtype=dt, device=dev),
+                        torch.tensor(1.0, dtype=dt, device=dev))
+    Af = Ad * p_sgn[:, None]
+    p_delta = 1e-7 if dt == torch.float32 else 1e-13
+    eye_delta = p_delta * torch.eye(n, dtype=dt, device=dev)
+    tiny = 1e-30
+    zero_m = torch.zeros(m, dtype=dt, device=dev)
+    one_m = torch.ones(m, dtype=dt, device=dev)
+    m_i = max(float((nn_m | np_m).sum()), 1.0)
+
+    def ipm_step(x, y, s):
+        mu = torch.dot(torch.where(p_ineq, s, zero_m), torch.where(p_ineq, y, zero_m)) / m_i
+        y_safe = torch.where(p_ineq, y, one_m)
+        s_safe = torch.where(p_ineq, torch.clamp(s, min=tiny), one_m)
+        D_i = torch.where(p_ineq, y_safe / s_safe, zero_m)
+        DZ = torch.clamp(1e4 * torch.max(D_i), min=1e8)
+        D = torch.where(p_zero, DZ, D_i)
+        Lm, info = torch.linalg.cholesky_ex(Af.T @ (D[:, None] * Af) + eye_delta)
+        # A failed factorisation gives NaN, as in the JAX package, and the
+        # burst's acceptance test rejects it.
+        Lm = torch.where(info == 0, Lm, torch.full_like(Lm, float("nan")))
+        r_p = torch.mv(Af, x) + s - p_sgn * b
+        r_d = torch.mv(Af.T, y) + c
+
+        def newton(sigma_mu):
+            r_c = torch.where(p_ineq, s * y - sigma_mu, zero_m)
+            rc_y = torch.where(p_ineq, r_c / y_safe, zero_m)
+            rhs = -r_d - torch.mv(Af.T, D * (r_p - rc_y))
+            dx = torch.cholesky_solve(rhs[:, None], Lm)[:, 0]
+            dy = D * (torch.mv(Af, dx) + r_p - rc_y)
+            ds = torch.where(p_ineq, (-r_c - s * dy) / y_safe, zero_m)
+            return dx, dy, ds
+
+        def amax(v, dv):
+            neg = dv < 0
+            r = torch.where(p_ineq & neg, -v / torch.where(neg, dv, -one_m),
+                            torch.full_like(v, float("inf")))
+            return torch.clamp(0.995 * torch.min(r), max=1.0)
+
+        dx, dy, ds = newton(torch.zeros((), dtype=dt, device=dev))
+        ap, ad = amax(s, ds), amax(y, dy)
+        mu_aff = torch.dot(torch.where(p_ineq, s + ap * ds, zero_m),
+                           torch.where(p_ineq, y + ad * dy, zero_m)) / m_i
+        sigma = torch.clamp((mu_aff / torch.clamp(mu, min=tiny)) ** 3, 0.0, 1.0)
+        dx, dy, ds = newton(sigma * mu)
+        ap, ad = amax(s, ds), amax(y, dy)
+        return x + ap * dx, y + ad * dy, s + ap * ds
+
+    def burst(x_s, y_s, s_s):
+        eps0 = 1e-6 * (1.0 + b_norm)
+        x = x_s
+        s = torch.where(p_ineq, torch.maximum(p_sgn * s_s, eps0), zero_m)
+        y = torch.where(p_ineq, torch.maximum(p_sgn * y_s, eps0),
+                        torch.where(p_zero, p_sgn * y_s, zero_m))
+        for _ in range(steps):
+            x, y, s = ipm_step(x, y, s)
+        x_p, y_p = x, p_sgn * y
+        s_p = b - torch.mv(Ad, x_p)
+        r_pri = _nrm(s_p - Ky.project(s_p))
+        aty = torch.mv(Ad.T, y_p)
+        r_dua = _nrm(aty + c)
+        y_cone = _nrm(y_p - Ky_dual.project(y_p))
+        cx, by = torch.dot(c, x_p), torch.dot(b, y_p)
+        gap = torch.abs(cx + by)
+        eps_pri = sqm * abs_tol + rel_tol * torch.maximum(b_norm, _nrm(s_p))
+        eps_dua = sqn * abs_tol + rel_tol * torch.maximum(_nrm(aty), c_norm)
+        eps_cone = sqm * abs_tol + rel_tol * torch.clamp(_nrm(y_p), min=1.0)
+        eps_gap = abs_tol + rel_tol * torch.maximum(
+            torch.clamp(gap, min=1.0), torch.maximum(torch.abs(cx), torch.abs(by)))
+        ok = ((r_pri <= eps_pri) & (r_dua <= eps_dua) & (y_cone <= eps_cone)
+              & (gap <= eps_gap) & torch.all(torch.isfinite(x_p))
+              & torch.all(torch.isfinite(y_p)))
+        return ok, x_p, y_p, r_pri, r_dua, gap
+
+    return burst
+
+
+def hsde_solve(
+    A,
+    b,
+    c,
+    Ky: ConeSet,
+    P=None,
+    strategy: str = "smw",
+    abs_tol: float = 1e-4,
+    rel_tol: float = 1e-3,
+    max_iter: int = 2500,
+    smw_factor: Optional[dict] = None,
+    use_anderson: bool = False,
+    anderson_mem: int = 5,
+    anderson_start: int = 10,
+    u0=None,
+    polish: bool = False,
+):
+    """Run the HSDE DR iteration on the *scaled* problem.
+
+    Returns a dict: ``w`` and ``u`` (packed [x; y; τ]), ``status``,
+    ``final_iter``, ``fp_resid``, ``r_pri``, ``r_dua`` and ``gap``, as the
+    JAX function.  Unscaling happens in the caller.
+    """
+    if P is not None:
+        raise NotImplementedError(
+            "a quadratic P in the embedding comes with slice 5 (QP and LP)")
+    Ad = _dense(A)
+    m, n = Ad.shape
+    dt, dev = Ad.dtype, Ad.device
+    dim = n + m + 1
+    Ky_dual = Ky.dual()
+    b = torch.as_tensor(b, dtype=dt, device=dev)
+    c = torch.as_tensor(c, dtype=dt, device=dev)
+
+    def T(v):
+        return torch.as_tensor(v, dtype=dt, device=dev)
+
+    if strategy == "smw":
+        factor = smw_factor if smw_factor is not None else smw_setup(Ad, b, c)
+
+        def lin_solve(ux, uy, ut):
+            return _smw_solve_split(factor, Ad, b, c, ux, uy, ut)
+    elif strategy in ("direct", "inverse"):
+        # Cholesky of G = MᵀM + δI, then two refinement steps against the
+        # unregularized MᵀM.
+        M = dense_q(Ad, b, c)
+        delta = (1e-6 if dt == torch.float32 else 1e-12) * dim
+        L = torch.linalg.cholesky(M.T @ M + delta * torch.eye(dim, dtype=dt, device=dev))
+
+        def solve_G(r):
+            return torch.cholesky_solve(r[:, None], L)[:, 0]
+
+        def lin_solve(ux, uy, ut):
+            rhs = torch.mv(M.T, torch.cat([ux, uy, ut[None]]))
+            w = solve_G(rhs)
+            for _ in range(2):
+                w = w + solve_G(rhs - torch.mv(M.T, torch.mv(M, w)))
+            return w[:n], w[n:n + m], w[n + m]
+    elif strategy == "cg":
+        raise NotImplementedError(f"the cg strategy comes with {_SPARSE_SLICE}")
+    else:
+        raise ValueError(f"unknown HSDE strategy {strategy!r}")
+
+    b_norm = _nrm(b)
+    c_norm = _nrm(c)
+    sqm = torch.sqrt(T(m))
+    sqn = torch.sqrt(T(n))
+    abs_t = T(abs_tol)
+    rel_t = T(rel_tol)
+    one = T(1.0)
+    fp_tol = abs_t * torch.sqrt(T(dim)) + rel_t
+    cert_tol = abs_t + rel_t
+    eps_d = T(1e-12)
+
+    plan = polish_plan(Ky, m, n, polish)
+    burst = None if plan is None else _make_polish(
+        Ad, b, c, Ky, Ky_dual, plan, abs_t, rel_t, sqm, sqn, b_norm, c_norm)
+
+    def check(st, it):
+        """The residual / certificate test; both τ branches, selected."""
+        wx, wy, wt = st["wx"], st["wy"], st["wt"]
+        w_norm = torch.sqrt(_sum2(wx) + _sum2(wy) + wt * wt)
+        tau_ok = wt > torch.clamp(K_TAU_REL * w_norm, min=K_TAU_TOL)
+        tau = torch.where(tau_ok, wt, one)
+
+        # τ > 0: the primal, dual and gap test on (x, y) = w / τ.
+        x_s, y_s = wx / tau, wy / tau
+        s_s = b - torch.mv(Ad, x_s)
+        r_pri = _nrm(s_s - Ky.project(s_s))
+        s_norm = _nrm(s_s)
+        r_dua_cone = _nrm(y_s - Ky_dual.project(y_s))
+        aty = torch.mv(Ad.T, y_s)
+        r_dua = _nrm(aty + c)
+        eps_pri = sqm * abs_t + rel_t * torch.maximum(b_norm, s_norm)
+        eps_dua = sqn * abs_t + rel_t * torch.maximum(_nrm(aty), c_norm)
+        eps_cone = sqm * abs_t + rel_t * torch.clamp(_nrm(y_s), min=1.0)
+        c_dot_x, b_dot_y = torch.dot(c, x_s), torch.dot(b, y_s)
+        gap = torch.abs(c_dot_x + b_dot_y)
+        # Scale-invariant gap test (the JAX package's deviation from the
+        # reference): relative to max(1, gap, |c'x|, |b'y|).
+        eps_gap = abs_t + rel_t * torch.maximum(
+            torch.clamp(gap, min=1.0), torch.maximum(torch.abs(c_dot_x), torch.abs(b_dot_y)))
+        curr = r_pri + r_dua + r_dua_cone + gap
+        alpha_pos = torch.where(curr <= st["prev_resid"] * 0.99,
+                                torch.clamp(st["alpha"] * K_ALPHA_GROW, max=K_ALPHA_MAX),
+                                T(K_ALPHA_MIN))
+        converged = ((r_pri <= eps_pri) & (r_dua <= eps_dua)
+                     & (r_dua_cone <= eps_cone) & (gap <= eps_gap))
+        wx_pos, wy_pos = wx, wy
+        r_o, d_o, g_o = r_pri, r_dua, gap
+        if burst is not None:
+            start, every, _ = plan
+            if it >= start and it % every == 0 and bool(tau_ok & ~converged & ~st["done"]):
+                ok_p, x_p, y_p, r_pp, r_dp, g_p = burst(x_s, y_s, s_s)
+                wx_pos = torch.where(ok_p, x_p * tau, wx)
+                wy_pos = torch.where(ok_p, y_p * tau, wy)
+                r_o = torch.where(ok_p, r_pp, r_o)
+                d_o = torch.where(ok_p, r_dp, d_o)
+                g_o = torch.where(ok_p, g_p, g_o)
+                converged = converged | ok_p
+
+        # τ ≈ 0: the certificates of the ray w.
+        kappa = -torch.dot(c, wx) - torch.dot(b, wy)
+        firm = (kappa > K_KAPPA_TOL) & (st["fp_resid"] <= fp_tol)
+        # Unboundedness needs −A x̂ in the recession cone of K_y.
+        ax_dist = Ky.distance(-torch.mv(Ad, wx))
+        aty_norm = _nrm(torch.mv(Ad.T, wy))
+        y_cone = _nrm(wy - Ky_dual.project(wy))
+        b_neg = -torch.dot(b, wy)
+        c_neg = -torch.dot(c, wx)
+        infeas_sup = firm & (b_neg > cert_tol) & (aty_norm <= cert_tol * b_neg) \
+            & (y_cone <= cert_tol * b_neg)
+        unbdd_sup = firm & (c_neg > cert_tol) & (ax_dist <= cert_tol * c_neg)
+        # Dominance: each Farkas product over the joint ray norm and its
+        # own data norm; the competing one must be K_CERT_CROSS x weaker,
+        # and if both hold the dominant one wins.
+        joint = torch.sqrt(_sum2(wx) + _sum2(wy)) + eps_d
+        beta = b_neg / (joint * torch.maximum(b_norm, eps_d))
+        gamma = c_neg / (joint * torch.maximum(c_norm, eps_d))
+        both = infeas_sup & unbdd_sup
+        infeas = infeas_sup & ((gamma <= K_CERT_CROSS * beta) | (both & (beta >= gamma)))
+        unbdd = unbdd_sup & ~infeas & ((beta <= K_CERT_CROSS * gamma) | (both & (gamma > beta)))
+        fired = torch.where(infeas, 1, torch.where(unbdd, 2, 0)).to(torch.int32)
+        # A certificate latches only when the same one fires on two
+        # consecutive checks with the residual tightened past the threshold.
+        confirm = (fired > 0) & (fired == st["cert_pending"]) \
+            & (st["fp_resid"] <= K_CERT_CONFIRM * fp_tol)
+        status_0 = torch.where(confirm & infeas, Status.INFEASIBLE.value,
+                               torch.where(confirm & unbdd, Status.UNBOUNDED.value,
+                                           st["status"]))
+        status_pos = torch.where(converged, Status.SUCCESS.value, st["status"])
+
+        def pick(pos, zero):
+            return torch.where(tau_ok, pos, zero)
+
+        return {
+            **st,
+            "alpha": pick(alpha_pos, st["alpha"]),
+            "prev_resid": pick(curr, st["prev_resid"]),
+            "done": st["done"] | pick(converged, confirm),
+            "status": pick(status_pos, status_0).to(torch.int32),
+            "r_pri": pick(r_o, st["r_pri"]),
+            "r_dua": pick(d_o, st["r_dua"]),
+            "gap": pick(g_o, st["gap"]),
+            "cert_pending": pick(torch.zeros_like(fired), fired),
+            "wx": pick(wx_pos, wx),
+            "wy": pick(wy_pos, wy),
+        }
+
+    def body(st, it):
+        wx, wy, wt = lin_solve(st["ux"], st["uy"], st["ut"])
+        vx, vy, vt = 2.0 * wx - st["ux"], 2.0 * wy - st["uy"], 2.0 * wt - st["ut"]
+        # Project: x free, y onto K_y*, τ onto R_+.
+        zy = Ky_dual.project(vy)
+        zt = torch.clamp(vt, min=0.0)
+        ux = st["ux"] + st["alpha"] * (vx - wx)
+        uy = st["uy"] + st["alpha"] * (zy - wy)
+        ut = st["ut"] + st["alpha"] * (zt - wt)
+        fp = torch.sqrt(_sum2(vx - wx) + _sum2(zy - wy) + (zt - wt) ** 2)
+        new = dict(st)
+        if use_anderson:
+            # Type-II Anderson on the DR map, its history reset whenever the
+            # fixed-point residual grows.
+            u_acc, aa = anderson_step(st["aa"], torch.cat([st["ux"], st["uy"], st["ut"][None]]),
+                                      torch.cat([ux, uy, ut[None]]))
+            grew = fp > st["fp_resid"]
+            aa = aa._replace(k=torch.where(grew, torch.zeros_like(aa.k), aa.k))
+            take = (st["k"] >= anderson_start) & ~grew
+            ux = torch.where(take, u_acc[:n], ux)
+            uy = torch.where(take, u_acc[n:n + m], uy)
+            ut = torch.where(take, u_acc[n + m], ut)
+            new["aa"] = aa
+        new.update(ux=ux, uy=uy, ut=ut, wx=wx, wy=wy, wt=wt, fp_resid=fp)
+        if it % K_CHECK_EVERY == 0 or it >= max_iter - 1:
+            new = check(new, it)
+        done = new["done"] | (new["k"] >= max_iter - 1) | ~torch.isfinite(fp)
+        new["k"] = torch.where(new["done"], new["k"], new["k"] + 1)
+        new["done"] = done
+        return new
+
+    if u0 is None:
+        ux0 = torch.zeros(n, dtype=dt, device=dev)
+        uy0 = torch.zeros(m, dtype=dt, device=dev)
+        ut0 = T(1.0)
+    else:
+        u0 = T(u0)
+        ux0, uy0, ut0 = u0[:n], u0[n:n + m], u0[n + m]
+    zero = T(0.0)
+    st = {
+        "ux": ux0, "uy": uy0, "ut": ut0,
+        "wx": torch.zeros(n, dtype=dt, device=dev),
+        "wy": torch.zeros(m, dtype=dt, device=dev), "wt": zero,
+        "alpha": T(K_ALPHA_MIN), "fp_resid": T(1.0),
+        "prev_resid": T(torch.finfo(dt).max),
+        "k": torch.zeros((), dtype=torch.int32, device=dev),
+        "done": torch.zeros((), dtype=torch.bool, device=dev),
+        "status": torch.tensor(Status.MAX_ITER.value, dtype=torch.int32, device=dev),
+        "r_pri": zero, "r_dua": zero, "gap": zero,
+        "cert_pending": torch.zeros((), dtype=torch.int32, device=dev),
+    }
+    if use_anderson:
+        st["aa"] = anderson_init(dim, anderson_mem, dt, dev)
+
+    for it in range(max_iter):
+        new = body(st, it)
+        was_done = st["done"]
+        st = {key: (val if key == "aa" else torch.where(was_done, st[key], val))
+              for key, val in new.items()}
+        if (it % K_CHECK_EVERY == 0 or it >= max_iter - 1) and bool(st["done"]):
+            break
+
+    return {
+        "w": torch.cat([st["wx"], st["wy"], st["wt"][None]]),
+        "u": torch.cat([st["ux"], st["uy"], st["ut"][None]]),
+        "status": st["status"],
+        "final_iter": st["k"],
+        "fp_resid": st["fp_resid"],
+        "r_pri": st["r_pri"],
+        "r_dua": st["r_dua"],
+        "gap": st["gap"],
+    }

@@ -5,7 +5,8 @@ Counterpart of ``pogs_tpu/types.py``.  ``Function``, ``Cone`` and ``Status``
 carry the same integer values as the JAX package (the C ABI exposes them).
 ``FunctionVector`` keeps the ``h`` codes as a host numpy int32 array and the
 parameters a..e as tensors; c and e are clamped at 0 (the function would be
-non-convex otherwise).
+non-convex otherwise).  ``ConeConstraint`` is one cone over a tuple of
+coordinate indices.
 """
 
 from __future__ import annotations
@@ -177,6 +178,23 @@ class FunctionVector:
         return new
 
 
+@dataclasses.dataclass(frozen=True)
+class ConeConstraint:
+    """One cone constraint over a set of coordinate indices (the reference's
+    prox_lib_cone.h:31-42): ``cone`` plus the indices, as a tuple of ints,
+    of the entries of x (or y) that belong to it."""
+
+    cone: Cone
+    indices: tuple
+
+    def __init__(self, cone: Cone, indices):
+        object.__setattr__(self, "cone", Cone(cone))
+        object.__setattr__(self, "indices", tuple(int(i) for i in indices))
+
+    def __len__(self):
+        return len(self.indices)
+
+
 # Solver defaults — the reference's pogs.h.
 DEFAULT_ABS_TOL = 1e-4
 DEFAULT_REL_TOL = 1e-3
@@ -189,12 +207,14 @@ DEFAULT_VERBOSE = 0
 class SolverSettings:
     """Solver knobs; the same fields and defaults as the JAX package.
 
-    ``use_fused`` switches the hand-written CUDA solve kernel
-    (``ops/fused_admm.py``): None = auto (on for eligible problems on a CUDA
-    device), True = force (raises on an ineligible problem), False = always
-    the eager loop.  ``cgls_max_iter`` and ``polish`` belong to paths this
-    package does not have yet and are kept for a like-for-like settings
-    surface.
+    ``use_fused`` switches the hand-written CUDA solve kernels
+    (``ops/fused_admm.py`` for the graph form, ``ops/fused_hsde.py`` for the
+    cone form): None = auto (on for eligible problems on a CUDA device),
+    True = force (raises on an ineligible problem), False = always the eager
+    loop.  ``polish`` turns on the interior-point tail polish of the eager
+    cone loop (``solver/hsde.py``).  ``cgls_max_iter`` belongs to the
+    indirect projector, which this package does not have yet, and is kept
+    for a like-for-like settings surface.
     """
 
     abs_tol: float = DEFAULT_ABS_TOL

@@ -3,8 +3,11 @@
 The tests export the JAX package's init state (the equilibrated A, the
 scalings d and e, ‖A‖₂ and the projector factor) as numpy arrays, and
 :func:`init_state_from_numpy` turns them into this package's init state, so
-that both packages iterate from bit-identical scaled data.  This module
-imports no JAX.
+that both packages iterate from bit-identical scaled data.  The graph-form
+and the cone-form init states have the same keys (for the cone form, A is
+equilibrated with the cone hooks and ``factor["op"]`` is the Gram inverse
+the SMW solve uses), and both solvers take them through
+``load_init_state``.  This module imports no JAX.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""The solve kernel and the batched kernel on the card against their plain
-versions.
+"""The solve kernel, the batched kernel and the cone kernel on the card
+against their plain versions.
 
 Marked ``cuda``: every test skips where torch sees no CUDA device.  On a
 machine with one:  python -m pytest tests/test_torch_cuda.py -q
@@ -7,7 +7,9 @@ machine with one:  python -m pytest tests/test_torch_cuda.py -q
 Tolerances, kernel against its plain version on the same card and inputs
 (per lane for the batched kernel): the same status, iterations within 2
 (the kernel sums in another order), optval within 1e-4 relative, x12 and z
-within 5e-5·max(1, ‖·‖∞).
+within 5e-5·max(1, ‖·‖∞).  The cone kernel (K3) against its plain version:
+the same status, iterations within 2, w within 1e-5·max(1, ‖w‖∞) in float32
+and 1e-9·max(1, ‖w‖∞) in float64.
 """
 
 import numpy as np
@@ -17,6 +19,7 @@ import torch
 import pogs_tpu_torch as P
 from pogs_tpu_torch.ops import fused_admm as pf
 from pogs_tpu_torch.ops import fused_admm_batch as pb
+from pogs_tpu_torch.ops import fused_hsde as ph
 from pogs_tpu_torch.parallel import batched_graph_solve
 
 pytestmark = pytest.mark.cuda
@@ -134,3 +137,58 @@ def test_batch_results_do_not_depend_on_lanes_per_block(cuda, monkeypatch):
     for out in outs[1:]:
         for key in ("x12", "y12", "optval", "final_iter", "status", "rho"):
             assert torch.equal(out[key], outs[0][key]), key
+
+
+def _cone_cases():
+    C, CC = P.Cone, P.ConeConstraint
+    rng = np.random.default_rng(3)
+    m, n = 40, 12
+    A = rng.standard_normal((m, n))
+    lp = (A, A @ rng.standard_normal(n) + rng.random(m) + 0.1, rng.standard_normal(n),
+          [CC(C.NON_NEG, range(m))])
+    soc = (np.vstack([np.zeros((1, 9)), -np.eye(9)]),
+           np.concatenate([[1.5], -rng.standard_normal(9)]), rng.standard_normal(9),
+           [CC(C.SOC, range(10))])
+    exp = (np.array([[-1.0], [0.0], [0.0]]), np.array([0.0, 1.0, float(np.e)]),
+           np.array([-1.0]), [CC(C.EXP_PRIMAL, [0, 1, 2])])
+    infeasible = (np.array([[-1.0], [1.0]]), np.array([-1.0, 0.0]), np.array([1.0]),
+                  [CC(C.NON_NEG, [0, 1])])
+    unbounded = (np.array([[-1.0]]), np.array([0.0]), np.array([-1.0]), [CC(C.NON_NEG, [0])])
+    return {"lp": (lp, 0), "socp": (soc, 0), "exp": (exp, 0),
+            "infeasible": (infeasible, 1), "unbounded": (unbounded, 2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["lp", "socp", "exp", "infeasible", "unbounded"])
+def test_cone_kernel_matches_plain(cuda, case, dtype):
+    (A, b, c, cones), status = _cone_cases()[case]
+    solver = P.ConeSolver(A, Ky=cones, dtype=dtype, device=cuda).init()
+    st = solver._init_state
+    b_s = torch.as_tensor(b, dtype=dtype, device=cuda) * st["d"]
+    c_s = torch.as_tensor(c, dtype=dtype, device=cuda) * st["e"]
+    fac = solver.smw_factor(b_s, c_s)
+    args = (st["A"], b_s, c_s, solver.Ky, st["factor"]["op"], fac["t_x"], fac["t_y"],
+            fac["s_den"], 1e-6, 1e-6, 5000)
+    before = ph.fused_hsde_solve.launches
+    out = ph.fused_hsde_solve(*args, At=st["At"])
+    ref = ph.fused_hsde_solve_ref(*args)
+    torch.cuda.synchronize()
+    assert ph.fused_hsde_solve.launches == before + 1
+    assert int(out["status"]) == int(ref["status"]) == status
+    assert abs(int(out["final_iter"]) - int(ref["final_iter"])) <= 2
+    rel = 1e-5 if dtype == torch.float32 else 1e-9
+    lim = rel * max(1.0, float(ref["w"].abs().max()))
+    assert float((out["w"] - ref["w"]).abs().max()) <= lim
+
+
+def test_cone_solver_launches_the_cone_kernel_once(cuda):
+    (A, b, c, cones), _ = _cone_cases()["socp"]
+    before = (ph.fused_hsde_solve.launches, pf.fused_admm_loop.launches)
+    r = P.ConeSolver(A, Ky=cones, device=cuda).solve(b, c)
+    assert (ph.fused_hsde_solve.launches, pf.fused_admm_loop.launches) == \
+        (before[0] + 1, before[1])
+    assert r.status == P.Status.SUCCESS
+    # A separable-only tall LP with polish on takes the eager loop.
+    (A, b, c, cones), _ = _cone_cases()["lp"]
+    P.ConeSolver(A, Ky=cones, device=cuda).solve(b, c)
+    assert ph.fused_hsde_solve.launches == before[0] + 1
