@@ -30,12 +30,16 @@
 // residuals run.  The block reads A, A^T and Ginv once per iteration and
 // applies every element to all its lanes: (2mn + k^2) elements per block and
 // iteration, whatever Kc is.  At 500x300 f32 that is 1.5 MB, which stays in
-// the 50 MB L2; at 5000x2500 it is 125 MB, which does not.  One block per SM
-// streams the matrices with scalar loads, so a block is bound by the bytes
-// it can keep in flight, not by FLOPs (8 lanes make 8 FMAs per element
-// loaded).  So the wrapper takes the smallest Kc (1, 2, 4 or 8) whose blocks
-// all fit the card in one wave: more blocks stream more bytes at once, and a
-// block of few lanes waits less for its slowest lane.
+// the 50 MB L2; at 5000x2500 it is 125 MB, which does not, and every block
+// would stream it from HBM alone.  So this kernel is the route for sweeps
+// whose matrices fit the L2 and are small, or carry many lanes
+// (ops/fused_admm_batch.py::route_for); otherwise fused_admm_sweep.cu
+// streams each matrix once per iteration over the whole card.  Below L2 a block is bound by the bytes it can keep in flight from
+// L2 and by its slowest lane, not by FLOPs (8 lanes make 8 FMAs per element
+// loaded), and it needs no grid sync.  So the wrapper takes the smallest Kc
+// (1, 2, 4 or 8) whose blocks all fit the card in one wave: more blocks
+// stream more bytes at once, and a block of few lanes waits less for its
+// slowest lane.
 //
 // Matrix products: the block's lane vectors are staged through shared
 // memory in tiles of kTR rows; each thread owns one column of a kTX-wide
@@ -209,7 +213,6 @@ __global__ void __launch_bounds__(kThreads, 1) batch_kernel(Params<T> P) {
   const T sqrtn_atol = m_sqrt(T(n)) * abs_tol;
   const T sqrtm_atol = m_sqrt(T(m)) * abs_tol;
   const T sqrtmn_atol = m_sqrt(T(m + n)) * abs_tol;
-  const T rho_min = Lim<T>::rho_min(), rho_max = Lim<T>::rho_max();
   const T norm_A = P.scal[1];
 
   // Cold start: z = z~ = 0.
@@ -378,47 +381,9 @@ __global__ void __launch_bounds__(kThreads, 1) batch_kernel(Params<T> P) {
       if (done_now) {
         sh.status[l] = conv_now ? kSuccess : (nan_now ? kNanFound : kMaxIter);
       } else {
-        if (P.adaptive_rho) {
-          T delta = sh.delta[l], xi = sh.xi[l], kd = sh.kd[l], ku = sh.ku[l];
-          const T pri_n = nrm_r / eps_pri;
-          const T dua_n = nrm_s / eps_dua;
-          const bool spec_slot = k > 0 && k % K_SPEC_FREQ == 0 && eps_pri > T(0) && eps_dua > T(0);
-          const T safe_dua = dua_n == T(0) ? one : dua_n;
-          const T imb = pri_n / safe_dua;
-          const T thresh = T(K_SPEC_IMB_THRESH);
-          const bool spec_cond = pri_n > T(0) && dua_n > T(0) &&
-                                 (imb > thresh || imb < one / thresh);
-          const T ratio = tclip(m_sqrt(imb), T(K_SPEC_CHANGE_MIN), T(K_SPEC_CHANGE_MAX));
-          const T rho_spec = tclip(rho * ratio, rho_min, rho_max);
-          const bool spec_apply = spec_slot && spec_cond &&
-                                  m_fabs(rho_spec - rho) / rho > T(K_SPEC_MIN_DELTA);
-
-          const T kf = T(k);
-          const bool bal_slot = !spec_slot;
-          const bool s_small = nrm_s < xi * eps_dua;
-          const bool r_small = nrm_r < xi * eps_pri;
-          const bool bal_up = bal_slot && s_small && !r_small && T(K_TAU) * kf > kd;
-          const bool bal_dn = bal_slot && !s_small && r_small && T(K_TAU) * kf > ku && !bal_up;
-          const bool bal_both = bal_slot && s_small && r_small && !bal_up && !bal_dn;
-          const bool bal_else = bal_slot && !bal_up && !bal_dn && !bal_both;
-          const bool up_apply = bal_up && rho < rho_max;
-          const bool dn_apply = bal_dn && rho > rho_min;
-
-          T rho_new = rho;
-          if (spec_apply) { rho_new = rho_spec; zt_scale = rho / rho_spec; }
-          else if (up_apply) { rho_new = rho * delta; zt_scale = one / delta; }
-          else if (dn_apply) { rho_new = rho / delta; zt_scale = delta; }
-          if (up_apply || dn_apply) delta = T(K_GAMMA) * delta;
-          else if (bal_else) delta = T(K_DELTA_MIN);
-          if (bal_both) xi = xi * T(K_KAPPA);
-          if (up_apply) ku = kf;
-          if (dn_apply) kd = kf;
-          sh.rho[l] = rho_new;
-          sh.delta[l] = delta;
-          sh.xi[l] = xi;
-          sh.kd[l] = kd;
-          sh.ku[l] = ku;
-        }
+        if (P.adaptive_rho)
+          zt_scale = rho_schedule_step(k, nrm_r, nrm_s, eps_pri, eps_dua, sh.rho[l],
+                                       sh.delta[l], sh.xi[l], sh.kd[l], sh.ku[l]);
         sh.k[l] = k + 1;
       }
       sh.zt_scale[l] = zt_scale;

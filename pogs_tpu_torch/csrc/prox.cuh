@@ -211,4 +211,49 @@ template <typename T> __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// One step of the adaptive rho schedule (pogs.cpp:401-466; the plain
+// version is solver/admm.py::rho_schedule) after iteration k: the spectral
+// step every K_SPEC_FREQ iterations, the balancing step otherwise.  Updates
+// rho, delta, xi, kd and ku in place and returns the factor that rescales z~.
+template <typename T>
+__device__ T rho_schedule_step(int k, T nrm_r, T nrm_s, T eps_pri, T eps_dua, T& rho, T& delta,
+                               T& xi, T& kd, T& ku) {
+  const T one = T(1);
+  const T rho_min = Lim<T>::rho_min(), rho_max = Lim<T>::rho_max();
+  const T pri_n = nrm_r / eps_pri;
+  const T dua_n = nrm_s / eps_dua;
+  const bool spec_slot = k > 0 && k % K_SPEC_FREQ == 0 && eps_pri > T(0) && eps_dua > T(0);
+  const T safe_dua = dua_n == T(0) ? one : dua_n;
+  const T imb = pri_n / safe_dua;
+  const T thresh = T(K_SPEC_IMB_THRESH);
+  const bool spec_cond = pri_n > T(0) && dua_n > T(0) && (imb > thresh || imb < one / thresh);
+  const T ratio = tclip(m_sqrt(imb), T(K_SPEC_CHANGE_MIN), T(K_SPEC_CHANGE_MAX));
+  const T rho_spec = tclip(rho * ratio, rho_min, rho_max);
+  const bool spec_apply =
+      spec_slot && spec_cond && m_fabs(rho_spec - rho) / rho > T(K_SPEC_MIN_DELTA);
+
+  const T kf = T(k);
+  const bool bal_slot = !spec_slot;
+  const bool s_small = nrm_s < xi * eps_dua;
+  const bool r_small = nrm_r < xi * eps_pri;
+  const bool bal_up = bal_slot && s_small && !r_small && T(K_TAU) * kf > kd;
+  const bool bal_dn = bal_slot && !s_small && r_small && T(K_TAU) * kf > ku && !bal_up;
+  const bool bal_both = bal_slot && s_small && r_small && !bal_up && !bal_dn;
+  const bool bal_else = bal_slot && !bal_up && !bal_dn && !bal_both;
+  const bool up_apply = bal_up && rho < rho_max;
+  const bool dn_apply = bal_dn && rho > rho_min;
+
+  T zt_scale = one, rho_new = rho;
+  if (spec_apply) { rho_new = rho_spec; zt_scale = rho / rho_spec; }
+  else if (up_apply) { rho_new = rho * delta; zt_scale = one / delta; }
+  else if (dn_apply) { rho_new = rho / delta; zt_scale = delta; }
+  if (up_apply || dn_apply) delta = T(K_GAMMA) * delta;
+  else if (bal_else) delta = T(K_DELTA_MIN);
+  if (bal_both) xi = xi * T(K_KAPPA);
+  if (up_apply) ku = kf;
+  if (dn_apply) kd = kf;
+  rho = rho_new;
+  return zt_scale;
+}
+
 }  // namespace pogs

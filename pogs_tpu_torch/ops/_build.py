@@ -50,12 +50,19 @@ def library_path(name: str) -> Path:
 
 def _start(name: str):
     """Start nvcc on ``csrc/<name>.cu`` into a temporary file; returns
-    (process, temporary path, library path)."""
+    (process, temporary path, library path).  Raises before it creates
+    any file when there is no nvcc, and removes the temporary file when
+    the compiler does not start."""
+    nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    try:
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    except BaseException:
+        os.unlink(tmp)
+        raise
     return proc, tmp, library_path(name)
 
 

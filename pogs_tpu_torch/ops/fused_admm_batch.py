@@ -3,10 +3,20 @@ multi-right-hand-side fits that share A, f and g.
 
 Counterpart of ``pogs_tpu/ops/fused_admm_batch.py::fused_batched_lasso_sweep``.
 Lane k solves the problem with g.c replaced by ``c_batch[k]`` (a λ-sweep)
-and, optionally, f.b replaced by ``fb_batch[k]`` (multi-RHS).  The kernel
-(``csrc/fused_admm_batch.cu``) gives each thread block a chunk of Kc lanes
-and runs the whole while-loop for them; its source note says what bounds it
-on the card and what the design does about it.
+and, optionally, f.b replaced by ``fb_batch[k]`` (multi-RHS).  Two
+hand-written kernels compute it, and :func:`route_for` picks one by the
+size of A, Aᵀ and Ginv and by K:
+
+  * ``csrc/fused_admm_batch.cu`` gives each thread block a chunk of Kc
+    lanes (:func:`chunk_for`) and runs the whole while-loop for them; it
+    takes small matrices, and sweeps of many lanes whose matrices fit the
+    L2;
+  * ``csrc/fused_admm_sweep.cu`` runs one cooperative grid that streams
+    each matrix once per iteration for 32 lanes at a time, its products
+    split over every SM (:func:`sweep_plan`); it takes the rest.
+
+Their source notes say what bounds them on the card and what the designs do
+about it.
 
 ``fused_batched_lasso_sweep`` takes the same arguments and returns the same
 dict as the JAX function:
@@ -15,7 +25,8 @@ dict as the JAX function:
   * on a CPU tensor it runs the plain version,
     :func:`fused_batched_lasso_sweep_ref`, an eager loop over (K, ·) tensors.
 
-``fused_batched_lasso_sweep.launches`` counts kernel launches.
+``fused_batched_lasso_sweep.launches`` counts kernel launches, and
+``fused_batched_lasso_sweep.launches_by_route`` counts them by kernel.
 """
 
 from __future__ import annotations
@@ -36,7 +47,7 @@ from pogs_tpu_torch.solver.admm import (
 
 _DTYPES = (torch.float32, torch.float64)
 _SLOTS: dict = {}
-# Lanes per thread block the kernel is built for.
+# Lanes per thread block the L2-resident kernel is built for.
 LANE_CHUNKS = (1, 2, 4, 8)
 
 
@@ -223,18 +234,85 @@ def fused_batched_lasso_sweep_ref(A, Ginv, norm_A, h_f, f_params, h_g, g_params,
 
 
 def chunk_for(K: int, slots: int) -> int:
-    """Lanes per thread block: the smallest of ``LANE_CHUNKS`` whose blocks
-    all fit the card at once (``slots`` = SMs × resident blocks per SM).
+    """Lanes per thread block of the L2-resident kernel: the smallest of
+    ``LANE_CHUNKS`` whose blocks all fit the card at once (``slots`` = SMs ×
+    resident blocks per SM).
 
     A block streams A, Aᵀ and Ginv once per iteration whatever its lane
-    count, and is bound by the bytes it keeps in flight, so m and n do not
-    change the choice: more blocks stream more at once, and fewer lanes per
-    block wait less for their slowest lane.  A lane's results do not depend
-    on the choice."""
+    count; below L2 that stream is cheap, so more blocks finish sooner, and
+    fewer lanes per block wait less for their slowest lane.  A lane's
+    results do not depend on the choice."""
     for kc in LANE_CHUNKS:
         if -(-K // kc) <= slots:
             return kc
     return LANE_CHUNKS[-1]
+
+
+# The card's L2 cache (NVIDIA H100: 50 MB).
+L2_BYTES = 50 * 2**20
+# The streaming kernel's decomposition (csrc/fused_admm_sweep.cu, which
+# reports its own through pogs_sweep_constants; sweep_grid checks that the
+# two agree before the first launch).
+SWEEP_LANES = 32            # lanes in flight: a larger K runs in groups of 32
+SWEEP_ROWS_PER_STAGE = 16   # matrix rows per ring stage
+SWEEP_STAGES = 4            # ring stages (cp.async, 16 bytes a copy)
+# Below L2, the elements of A, Aᵀ and Ginv that each group of 32 lanes
+# needs for the streaming kernel to win (chip_smoke.py phase 7's
+# route_table, PERF.md §6).
+STREAM_ELEMS_PER_GROUP = 375_000
+
+
+def route_for(m: int, n: int, itemsize: int, K: int) -> str:
+    """Which of the two batched kernels runs a sweep of K lanes over an
+    (m, n) A.
+
+    ``"stream"`` (``csrc/fused_admm_sweep.cu``: one cooperative grid that
+    streams each matrix once per iteration, 32 lanes at a time and the
+    groups of 32 one after another) when A, Aᵀ and Ginv overflow the L2,
+    or when each lane group has ``STREAM_ELEMS_PER_GROUP`` of their elements
+    or more.  Otherwise ``"resident"`` (``csrc/fused_admm_batch.cu``, one
+    block per chunk of lanes, no grid sync).  Below L2 the resident
+    kernel's iteration costs one pass of a block over every element, and
+    the streaming kernel's about 45 to 110 µs per lane group, mostly grid
+    syncs."""
+    k = min(m, n)
+    elems = 2 * m * n + k * k
+    groups = -(-K // SWEEP_LANES)
+    if itemsize * elems > L2_BYTES or groups * STREAM_ELEMS_PER_GROUP <= elems:
+        return "stream"
+    return "resident"
+
+
+def sweep_tile_cols(itemsize: int) -> int:
+    """Columns of a product tile: 64 column groups of one 16-byte load."""
+    return 64 * (16 // itemsize)
+
+
+def sweep_smem_bytes(itemsize: int) -> int:
+    """Dynamic shared memory of the ring: each stage holds a tile's rows of
+    the matrix and the same rows of the 32 lane vectors."""
+    return (SWEEP_STAGES * SWEEP_ROWS_PER_STAGE
+            * (sweep_tile_cols(itemsize) + SWEEP_LANES) * itemsize)
+
+
+def slice_rows(R: int, C: int, itemsize: int, grid: int) -> int:
+    """Rows per row slice (split-K) of a product over an (R, C) matrix: as
+    many slices as the column tiles leave room for on a grid of ``grid``
+    blocks, each a whole number of ring stages."""
+    col_tiles = -(-C // sweep_tile_cols(itemsize))
+    slices = max(1, grid // col_tiles)
+    rows = -(-R // slices)
+    return -(-rows // SWEEP_ROWS_PER_STAGE) * SWEEP_ROWS_PER_STAGE
+
+
+def sweep_plan(m: int, n: int, itemsize: int, grid: int) -> tuple:
+    """The streaming kernel's row-slice heights for its products over A
+    (m, n), Aᵀ (n, m) and Ginv (k, k) on a grid of ``grid`` blocks; the
+    kernel derives the rest.  They depend on m, n, the dtype and the grid
+    alone, never on K, so a lane's arithmetic does not depend on the lanes
+    that ride with it."""
+    k = min(m, n)
+    return tuple(slice_rows(R, C, itemsize, grid) for R, C in ((m, n), (n, m), (k, k)))
 
 
 def _lib():
@@ -252,18 +330,41 @@ def _lib():
         lib.pogs_batch_work_elems.restype = ctypes.c_longlong
         lib.pogs_batch_error_string.argtypes = [ci]
         lib.pogs_batch_error_string.restype = ctypes.c_char_p
+        lib._pogs_error = lib.pogs_batch_error_string
+        lib._pogs_typed = True
+    return lib
+
+
+def _sweep_lib():
+    from pogs_tpu_torch.ops._build import load
+
+    lib = load("fused_admm_sweep")
+    if not getattr(lib, "_pogs_typed", False):
+        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+        lib.pogs_sweep.argtypes = ([ci, ci] + [vp] * 14 + [ci] * 9
+                                   + [cd, cd, ci, ci, ci, ci, vp])
+        lib.pogs_sweep.restype = ci
+        lib.pogs_sweep_grid.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.pogs_sweep_grid.restype = ci
+        lib.pogs_sweep_work_elems.argtypes = [ci] * 6
+        lib.pogs_sweep_work_elems.restype = ctypes.c_longlong
+        lib.pogs_sweep_constants.argtypes = [ci, ctypes.POINTER(ctypes.c_longlong)]
+        lib.pogs_sweep_constants.restype = None
+        lib.pogs_sweep_error_string.argtypes = [ci]
+        lib.pogs_sweep_error_string.restype = ctypes.c_char_p
+        lib._pogs_error = lib.pogs_sweep_error_string
         lib._pogs_typed = True
     return lib
 
 
 def _check(lib, rc: int, what: str):
     if rc != 0:
-        msg = lib.pogs_batch_error_string(rc).decode()
+        msg = lib._pogs_error(rc).decode()
         raise RuntimeError(f"batched ADMM kernel: {what} failed: {msg} ({rc})")
 
 
 def _slots(lib, device: torch.device, is_double: bool) -> int:
-    key = (device.index, is_double)
+    key = ("resident", device.index, is_double)
     if key not in _SLOTS:
         s = ctypes.c_int(0)
         _check(lib, lib.pogs_batch_slots(int(is_double), device.index, ctypes.byref(s)),
@@ -272,6 +373,91 @@ def _slots(lib, device: torch.device, is_double: bool) -> int:
             raise RuntimeError("batched ADMM kernel: a block does not fit on an SM")
         _SLOTS[key] = s.value
     return _SLOTS[key]
+
+
+def sweep_grid(lib, device: torch.device, is_double: bool) -> int:
+    """Blocks of the streaming kernel's cooperative grid (one per SM); also
+    checks that the library was built with the decomposition this module
+    plans with."""
+    key = ("stream", device.index, is_double)
+    if key not in _SLOTS:
+        consts = (ctypes.c_longlong * 5)()
+        lib.pogs_sweep_constants(int(is_double), consts)
+        itemsize = 8 if is_double else 4
+        want = [SWEEP_LANES, sweep_tile_cols(itemsize), SWEEP_ROWS_PER_STAGE, SWEEP_STAGES,
+                sweep_smem_bytes(itemsize)]
+        if list(consts) != want:
+            raise RuntimeError(f"streaming sweep kernel: the library's decomposition "
+                               f"{list(consts)} is not the wrapper's {want}")
+        g = ctypes.c_int(0)
+        _check(lib, lib.pogs_sweep_grid(int(is_double), device.index, ctypes.byref(g)),
+               "occupancy query")
+        if g.value < 1:
+            raise RuntimeError("streaming sweep kernel: a block does not fit on an SM")
+        _SLOTS[key] = g.value
+    return _SLOTS[key]
+
+
+def _pad_cols(M: torch.Tensor, mult: int) -> torch.Tensor:
+    """M with zero columns appended up to a multiple of ``mult`` (so that
+    every row starts on 16 bytes), contiguous."""
+    extra = -M.shape[1] % mult
+    return torch.nn.functional.pad(M, (0, extra)).contiguous() if extra else M
+
+
+def _lanes_inner(v: torch.Tensor, groups: int) -> torch.Tensor:
+    """(K, d) per-lane rows as (groups, d, 32), lanes innermost; the lanes
+    past K are zero."""
+    K, d = v.shape
+    out = torch.zeros((groups * SWEEP_LANES, d), dtype=v.dtype, device=v.device)
+    out[:K] = v
+    return out.reshape(groups, SWEEP_LANES, d).transpose(1, 2).contiguous()
+
+
+def _run_resident(lib, A, At, Ginv, hf, fp, hg, gp, cb, fbb, scal, out, settings):
+    m, n = A.shape
+    K = cb.shape[0]
+    dev, dt = A.device, A.dtype
+    is_double = dt == torch.float64
+    kc = chunk_for(K, _slots(lib, dev, is_double))
+    work = torch.empty(lib.pogs_batch_work_elems(m, n, K), dtype=dt, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lib.pogs_batch_sweep(
+        int(is_double), dev.index,
+        A.data_ptr(), At.data_ptr(), Ginv.data_ptr(), hf.data_ptr(), fp.data_ptr(),
+        hg.data_ptr(), gp.data_ptr(), cb.data_ptr(),
+        fbb.data_ptr() if fbb is not None else None, scal.data_ptr(),
+        out["x12"].data_ptr(), out["y12"].data_ptr(), out["stats"].data_ptr(),
+        work.data_ptr(), m, n, K, kc, float(settings.abs_tol), float(settings.rel_tol),
+        int(settings.max_iter), int(bool(settings.gap_stop)),
+        int(bool(settings.adaptive_rho)), stream,
+    )
+
+
+def _run_stream(lib, A, At, Ginv, hf, fp, hg, gp, cb, fbb, scal, out, settings):
+    m, n = A.shape
+    K = cb.shape[0]
+    dev, dt = A.device, A.dtype
+    is_double = dt == torch.float64
+    grid = sweep_grid(lib, dev, is_double)
+    H = sweep_plan(m, n, A.element_size(), grid)
+    mult = 16 // A.element_size()
+    A, At, Ginv = (_pad_cols(M, mult) for M in (A, At, Ginv))
+    groups = -(-K // SWEEP_LANES)
+    cbl = _lanes_inner(cb, groups)
+    fbl = _lanes_inner(fbb, groups) if fbb is not None else None
+    work = torch.empty(lib.pogs_sweep_work_elems(m, n, *H, grid), dtype=dt, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lib.pogs_sweep(
+        int(is_double), dev.index,
+        A.data_ptr(), At.data_ptr(), Ginv.data_ptr(), hf.data_ptr(), fp.data_ptr(),
+        hg.data_ptr(), gp.data_ptr(), cbl.data_ptr(),
+        fbl.data_ptr() if fbl is not None else None, scal.data_ptr(),
+        out["x12"].data_ptr(), out["y12"].data_ptr(), out["stats"].data_ptr(),
+        work.data_ptr(), m, n, K, A.shape[1], At.shape[1], Ginv.shape[1], *H,
+        float(settings.abs_tol), float(settings.rel_tol), int(settings.max_iter),
+        int(bool(settings.gap_stop)), int(bool(settings.adaptive_rho)), grid, stream,
+    )
 
 
 def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, c_batch, settings,
@@ -304,7 +490,7 @@ def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, c_batch, settings,
     K = g_l.c.shape[0]
     cb = g_l.c.contiguous()
     fbb = f_l.b.contiguous() if fb_batch is not None else None
-    # The kernel reads g's c from cb and, with fb_batch, f's b from fbb; their
+    # The kernels read g's c from cb and, with fb_batch, f's b from fbb; their
     # rows of fp / gp are unused.
     zm = torch.zeros(m, dtype=dt, device=dev)
     zn = torch.zeros(n, dtype=dt, device=dev)
@@ -315,29 +501,19 @@ def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, c_batch, settings,
     scal = torch.stack([torch.as_tensor(rho0, dtype=dt, device=dev).reshape(()),
                         torch.as_tensor(norm_A, dtype=dt, device=dev).reshape(())])
 
-    lib = _lib()
-    is_double = dt == torch.float64
-    kc = chunk_for(K, _slots(lib, dev, is_double))
-    x12 = torch.empty((K, n), dtype=dt, device=dev)
-    y12 = torch.empty((K, m), dtype=dt, device=dev)
-    stats = torch.empty((K, 4), dtype=dt, device=dev)
-    work = torch.empty(lib.pogs_batch_work_elems(m, n, K), dtype=dt, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.pogs_batch_sweep(
-        int(is_double), dev.index,
-        A.data_ptr(), At.data_ptr(), Ginv.data_ptr(), hf.data_ptr(), fp.data_ptr(),
-        hg.data_ptr(), gp.data_ptr(), cb.data_ptr(),
-        fbb.data_ptr() if fbb is not None else None, scal.data_ptr(),
-        x12.data_ptr(), y12.data_ptr(), stats.data_ptr(), work.data_ptr(),
-        m, n, K, kc, float(settings.abs_tol), float(settings.rel_tol),
-        int(settings.max_iter), int(bool(settings.gap_stop)),
-        int(bool(settings.adaptive_rho)), stream,
-    )
+    route = route_for(m, n, A.element_size(), K)
+    lib, run = (_sweep_lib(), _run_stream) if route == "stream" else (_lib(), _run_resident)
+    out = {"x12": torch.empty((K, n), dtype=dt, device=dev),
+           "y12": torch.empty((K, m), dtype=dt, device=dev),
+           "stats": torch.empty((K, 4), dtype=dt, device=dev)}
+    rc = run(lib, A, At, Ginv, hf, fp, hg, gp, cb, fbb, scal, out, settings)
     _check(lib, rc, "launch")
     fused_batched_lasso_sweep.launches += 1
+    fused_batched_lasso_sweep.launches_by_route[route] += 1
+    stats = out["stats"]
     return {
-        "x12": x12,
-        "y12": y12,
+        "x12": out["x12"],
+        "y12": out["y12"],
         "optval": stats[:, 0],
         "final_iter": stats[:, 1].to(torch.int32),
         "status": stats[:, 2].to(torch.int32),
@@ -371,3 +547,4 @@ def fused_batched_lasso_sweep(A, Ginv, norm_A, h_f, f_params, h_g, g_params,
 
 
 fused_batched_lasso_sweep.launches = 0
+fused_batched_lasso_sweep.launches_by_route = {"resident": 0, "stream": 0}

@@ -203,3 +203,94 @@ def test_chunk_rule():
     assert pb.chunk_for(500, 132) == 4
     assert pb.chunk_for(10_000, 132) == 8
     assert pb.chunk_for(1, 1) == 1
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("shape", [(500, 300), (5000, 2500)], ids=["bench", "real"])
+def test_sweep_plan(shape, dtype):
+    """The streaming kernel's decomposition on a 132-SM grid: 16-byte
+    column groups (256 columns f32, 128 f64), row slices of whole ring
+    stages that cover each matrix once with at most one item per block, and
+    the ring within the 227 KB of shared memory a Hopper block may use.  The
+    plan takes no K: K = 8 and K = 128 share it and differ only in their
+    lane groups of 32."""
+    m, n = shape
+    itemsize = np.dtype(_NP[dtype]).itemsize
+    grid = 132
+    tc = pb.sweep_tile_cols(itemsize)
+    assert tc == (256 if dtype == "f32" else 128)
+    assert pb.SWEEP_LANES == 32
+    assert [-(-K // pb.SWEEP_LANES) for K in (8, 32, 33, 128)] == [1, 1, 2, 4]
+    smem = pb.sweep_smem_bytes(itemsize)
+    assert smem == (73_728 if dtype == "f32" else 81_920) <= 227 * 1024
+    plan = pb.sweep_plan(m, n, itemsize, grid)
+    k = min(m, n)
+    for H, (R, C) in zip(plan, ((m, n), (n, m), (k, k))):
+        S = -(-R // H)
+        assert H % pb.SWEEP_ROWS_PER_STAGE == 0 and H >= pb.SWEEP_ROWS_PER_STAGE
+        assert (S - 1) * H < R <= S * H
+        assert S * -(-C // tc) <= grid
+    if shape == (5000, 2500) and dtype == "f32":
+        assert plan == (400, 432, 208)
+
+
+# chip_smoke.py phase 7 on NVIDIA H100 80GB HBM3, 700 W: lasso sweeps in
+# f32 below L2, ms per call of each kernel, timed in turns.
+_ROUTE_TIMES = [
+    # (m, n, K, resident ms, streaming ms)
+    (120, 80, 8, 0.73, 1.91), (120, 80, 32, 0.82, 2.28), (120, 80, 64, 0.72, 3.98),
+    (250, 150, 8, 2.06, 2.69), (250, 150, 32, 2.02, 3.30), (250, 150, 64, 2.02, 6.03),
+    (350, 210, 32, 3.10, 3.99), (350, 210, 64, 3.09, 7.34),
+    (500, 300, 8, 5.94, 3.21), (500, 300, 32, 5.92, 4.43), (500, 300, 64, 6.04, 8.54),
+    (500, 300, 128, 6.80, 16.40), (300, 500, 16, 19.48, 9.82),
+    (1000, 600, 8, 22.64, 5.15), (1000, 600, 32, 22.61, 7.70), (1000, 600, 64, 22.72, 14.02),
+    (2000, 1200, 8, 129.03, 9.07), (2000, 1200, 32, 166.62, 13.29),
+    (2000, 1200, 64, 180.44, 23.73),
+]
+
+
+@pytest.mark.parametrize("m,n,K,resident_ms,stream_ms", _ROUTE_TIMES)
+def test_route_rule(m, n, K, resident_ms, stream_ms):
+    """Below L2 the rule picks the kernel that was faster on the card for
+    that size and K (the one tie, 350x210 at K = 8, 3.02 against 2.97 ms,
+    is left out)."""
+    faster = "resident" if resident_ms < stream_ms else "stream"
+    assert pb.route_for(m, n, 4, K) == faster
+
+
+def test_route_rule_bounds():
+    """The streaming kernel whenever A, Aᵀ and Ginv overflow the 50 MB L2,
+    whatever K; below it, while each lane group of 32 has
+    STREAM_ELEMS_PER_GROUP elements of them or more, counted in elements,
+    so alike for f32 and f64."""
+    assert pb.route_for(5000, 2500, 4, 32) == "stream"     # 125 MB
+    assert pb.route_for(5000, 2500, 4, 1000) == "stream"
+    assert pb.route_for(2500, 5000, 8, 1) == "stream"
+    assert pb.route_for(500, 300, 8, 128) == "resident"
+    assert pb.route_for(500, 300, 8, 8) == "stream"
+    # 4 (2 m n + n^2) bytes at m = 2 n: 20 n^2 against 50 MiB.
+    n = int((pb.L2_BYTES / 20) ** 0.5)
+    assert pb.route_for(2 * n, n, 4, 10_000) == "resident"
+    assert pb.route_for(2 * n + 2, n + 1, 4, 10_000) == "stream"
+    # 5 n^2 elements at m = 2 n, against one and two lane groups.
+    n = int((pb.STREAM_ELEMS_PER_GROUP / 5) ** 0.5)
+    assert pb.route_for(2 * n, n, 4, 32) == "resident"
+    assert pb.route_for(2 * n + 2, n + 1, 4, 32) == "stream"
+    assert pb.route_for(2 * n + 2, n + 1, 8, 33) == "resident"
+
+
+def test_sweep_layouts():
+    """What the wrapper hands the streaming kernel: per-lane rows lanes
+    innermost in groups of 32 (padding lanes zero), and matrices whose rows
+    start on 16 bytes."""
+    v = torch.arange(40 * 3, dtype=torch.float32).reshape(40, 3)
+    out = pb._lanes_inner(v, 2)
+    assert out.shape == (2, 3, 32) and out.is_contiguous()
+    assert torch.equal(out[0].T, v[:32])
+    assert torch.equal(out[1, :, :8].T, v[32:])
+    assert not out[1, :, 8:].any()
+    M = torch.ones(5, 13, dtype=torch.float32)
+    P4 = pb._pad_cols(M, 4)
+    assert P4.shape == (5, 16) and torch.equal(P4[:, :13], M) and not P4[:, 13:].any()
+    M2 = torch.ones(5, 14, dtype=torch.float64)
+    assert pb._pad_cols(M2, 2) is M2

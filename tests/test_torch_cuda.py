@@ -96,7 +96,10 @@ def _sweep_args(cuda, shape, dtype, K, seed=7):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("shape", [(60, 40), (30, 70)], ids=["tall", "wide"])
-def test_batch_kernel_matches_plain(cuda, shape, dtype):
+def test_batch_kernel_matches_plain(cuda, shape, dtype, monkeypatch):
+    """The L2-resident kernel (csrc/fused_admm_batch.cu) against the plain
+    version."""
+    monkeypatch.setattr(pb, "route_for", lambda m, n, itemsize, K: "resident")
     args = _sweep_args(cuda, shape, dtype, 6)
     before = pb.fused_batched_lasso_sweep.launches
     out = pb.fused_batched_lasso_sweep(*args)
@@ -128,6 +131,7 @@ def test_batch_results_do_not_depend_on_lanes_per_block(cuda, monkeypatch):
     """Every lane's sums run in one fixed order whatever the block holds, so
     Kc = 1, 2, 4 and 8 give bit-identical lanes (the last block of 13
     lanes is short for each)."""
+    monkeypatch.setattr(pb, "route_for", lambda m, n, itemsize, K: "resident")
     args = _sweep_args(cuda, (60, 40), torch.float32, 13)
     outs = []
     for kc in pb.LANE_CHUNKS:
@@ -137,6 +141,42 @@ def test_batch_results_do_not_depend_on_lanes_per_block(cuda, monkeypatch):
     for out in outs[1:]:
         for key in ("x12", "y12", "optval", "final_iter", "status", "rho"):
             assert torch.equal(out[key], outs[0][key]), key
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(60, 40), (30, 70), (70, 13)], ids=["tall", "wide", "ragged"])
+def test_stream_kernel_matches_plain(cuda, shape, dtype, monkeypatch):
+    """The streaming kernel (csrc/fused_admm_sweep.cu), forced at a small
+    size, against the plain version: 40 lanes, so a full group of 32 and a
+    group of 8; the ragged shape pads A's 13 columns to 16 bytes."""
+    monkeypatch.setattr(pb, "route_for", lambda m, n, itemsize, K: "stream")
+    args = _sweep_args(cuda, shape, dtype, 40)
+    before = dict(pb.fused_batched_lasso_sweep.launches_by_route)
+    out = pb.fused_batched_lasso_sweep(*args)
+    ref = pb.fused_batched_lasso_sweep_ref(*args)
+    torch.cuda.synchronize()
+    assert pb.fused_batched_lasso_sweep.launches_by_route["stream"] == before["stream"] + 1
+    assert torch.equal(out["status"], ref["status"])
+    assert int((out["final_iter"] - ref["final_iter"]).abs().max()) <= 2
+    rel = (out["optval"] - ref["optval"]).abs() / ref["optval"].abs().clamp(min=1e-12)
+    assert float(rel.max()) <= 1e-4
+    lim = 5e-5 * max(1.0, float(ref["x12"].abs().max()))
+    assert float((out["x12"] - ref["x12"]).abs().max()) <= lim
+
+
+def test_stream_results_do_not_depend_on_K(cuda, monkeypatch):
+    """The streaming kernel's decomposition does not depend on K: K = 8 and
+    the first 8 lanes of K = 40 give the same status and iterations, and x
+    within 1e-6 relative."""
+    monkeypatch.setattr(pb, "route_for", lambda m, n, itemsize, K: "stream")
+    args = _sweep_args(cuda, (60, 40), torch.float32, 40)
+    full = pb.fused_batched_lasso_sweep(*args)
+    part = pb.fused_batched_lasso_sweep(*args[:7], args[7][:8], *args[8:])
+    torch.cuda.synchronize()
+    assert torch.equal(part["status"], full["status"][:8])
+    assert torch.equal(part["final_iter"], full["final_iter"][:8])
+    lim = 1e-6 * max(1.0, float(full["x12"][:8].abs().max()))
+    assert float((part["x12"] - full["x12"][:8]).abs().max()) <= lim
 
 
 def _cone_cases():
