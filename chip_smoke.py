@@ -41,8 +41,14 @@ Phases, each printing one JSON line of its own:
      the SMW solve) on the card, on the same scaled inputs from the port's
      cone init: the seven cases of tests/test_fused_hsde.py (LP, tall SOCP,
      wide equality LP, infeasible, unbounded, exp cone, mixed
-     SOC + exp + NonNeg), lp_ineq 1100x300, socp_ball 804x200 in f32 and f64,
-     and max_iter=5;
+     SOC + exp + NonNeg), six exp cones and an SOC in f64, a wide equality
+     LP 60x300 in f64, lp_ineq 1100x300, socp_ball 804x200 in f32 and f64,
+     and max_iter=5, each with its launch plan's blocks and barriers; the
+     six-exp case on 1, 3 and 8 blocks, socp_ball on 1 and 132, socp_ball
+     and the wide LP with their products in several column tiles, lp_ineq
+     f32 on 45, 92 and 132 blocks against the f64 solve; then K3's route
+     table (every case and five random LPs from 64x48 to 300x200 on 1 to
+     132 blocks, 1000 iterations at tolerance 0);
  11. the main cone path: pogs_tpu_torch.solve_cone_problem on socp_ball, the
      exp-primal, exp-dual and mixed conic fixtures, lp_ineq without polish
      (one K3 launch each), lp_ineq with the default polish (no K3 launch:
@@ -50,7 +56,9 @@ Phases, each printing one JSON line of its own:
      optval against an independent value (closed form, HiGHS, or the eager
      path with a cone residual);
  12. a real size: socp_ball(n=2000) 8004x2000 f32 through ConeSolver with
-     K3, timed per solve, and the eager loop on the same init;
+     K3, timed per solve, with its bound and its time per iteration against
+     the stream of A, Aᵀ and Kinv at 3.35 TB/s, and the eager loop on the
+     same init;
  13. a warm start: b·(1 + 1e-3) re-solved with warm_start=True, K3 and the
      eager loop.
 Then the kernels' summary line, the card's name and power limit, and last
@@ -64,6 +72,7 @@ problems come from benchmarks/problems.py and tests/conic_fixtures.py.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -807,7 +816,8 @@ def k3_cases(P):
     cases of tests/test_fused_hsde.py, then the benchmark-size ones.  ``how``
     says how the kernel is held to its plain version: "trajectory" (the same
     status, iterations within 2, w within 1e-5·max(1, ‖w‖∞) in f32 and
-    1e-9·max(1, ‖w‖∞) in f64) or "solution" (see ``solution_check``)."""
+    1e-9·max(1, ‖w‖∞) in f64), "solution" (see ``solution_check``) or
+    "optimum" (see ``optimum_check``)."""
     C, CC = P.Cone, P.ConeConstraint
     problems, _ = cone_problems()
     cases = []
@@ -846,16 +856,22 @@ def k3_cases(P):
     cases.append(("mixed_soc_exp_nonneg_10x4", A, b, c,
                   [CC(C.SOC, range(n + 1)), CC(C.EXP_PRIMAL, [n + 1, n + 2, n + 3]),
                    CC(C.NON_NEG, [n + 4, n + 5])], 1e-6, 8000, "float32", "trajectory"))
+    A, b, c, cones = multi_exp_problem(P)
+    cases.append(("multi_exp_soc_27x6_f64", A, b, c, cones, 1e-7, 5000, "float64",
+                  "trajectory"))
+    A, b, c, cones = wide_eq_problem(P, 60, 300)
+    cases.append(("wide_eq_lp_60x300_f64", A, b, c, cones, 1e-7, 5000, "float64",
+                  "trajectory"))
     lp = problems.lp_ineq()
     soc = problems.socp_ball()
     lp_cones = P.dims_to_cones(lp["dims"])
     soc_cones = P.dims_to_cones(soc["dims"])
     tol = CONE_TOL["abs_tol"]
-    # In f32 the benchmark-size solves run 860 to 2080 iterations; the sums
+    # In f32 the benchmark-size solves run 850 to 2260 iterations; the sums
     # of the kernel and of torch run in other orders, and the trajectories
-    # part by f32 roundoff, so the two may stop on neighbouring checks (10
-    # iterations apart): held at solution level.  In f64 they do not part.
-    for dname, how in (("float64", "trajectory"), ("float32", "solution")):
+    # part by f32 roundoff, so the two may stop many checks apart: held
+    # against the f64 solve.  In f64 they do not part.
+    for dname, how in (("float64", "trajectory"), ("float32", "optimum")):
         suffix = "f64" if dname == "float64" else "f32"
         cases.append((f"lp_ineq_1100x300_{suffix}", lp["A"], lp["b"], lp["c"], lp_cones,
                       tol, CONE_MAX_ITER, dname, how))
@@ -864,6 +880,122 @@ def k3_cases(P):
     cases.append(("socp_ball_max_iter_5_f32", soc["A"], soc["b"], soc["c"], soc_cones, tol,
                   5, "float32", "trajectory"))
     return cases
+
+
+def wide_eq_problem(P, m, n, seed=29):
+    """(A, b, c, cones): min c'x s.t. A x = b for a random wide (m, n) A,
+    b = A x1 and c = Aᵀ y1, so c'x is bounded on the affine set (a Zero
+    cone on every row: the kernel's Woodbury route)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n))
+    return (A, A @ rng.standard_normal(n), A.T @ rng.standard_normal(m),
+            [P.ConeConstraint(P.Cone.ZERO, range(m))])
+
+
+def random_lp(P, m, n, seed=31):
+    """(A, b, c, cones): min c'x s.t. A x ≤ b for a random dense (m, n) A,
+    feasible (b = A x0 + slack) and bounded (c = −Aᵀ y0, y0 > 0)."""
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n))
+    b = A @ rng.standard_normal(n) + rng.random(m) + 0.1
+    c = -A.T @ (rng.random(m) + 0.1)
+    return A, b, c, [P.ConeConstraint(P.Cone.NON_NEG, range(m))]
+
+
+def multi_exp_problem(P, seed=23):
+    """(A, b, c, cones): six exponential cones and an SOC, 27x6.  Three
+    primal cones (x_i, 1, e^{a_i}) hold x_i ≤ a_i, three dual ones
+    (−1, x_i, 1) hold x_i ≥ −1, the SOC ‖x − x0‖ ≤ 2, and two NonNeg rows
+    cut the ball; c is random, so the optimum lies on several cones."""
+    C, CC = P.Cone, P.ConeConstraint
+    rng = np.random.default_rng(seed)
+    n = 6
+    x0 = 0.3 * rng.standard_normal(n)
+    a = 0.2 + 0.5 * rng.random(3)
+    rows, bs, cones = [np.zeros((1, n)), -np.eye(n)], [[2.0], -x0], [CC(C.SOC, range(n + 1))]
+    for i in range(6):
+        blk = np.zeros((3, n))
+        if i < 3:
+            blk[0, i] = -1.0
+            bs.append([0.0, 1.0, float(np.exp(a[i]))])
+        else:
+            blk[1, i] = -1.0
+            bs.append([-1.0, 0.0, 1.0])
+        rows.append(blk)
+        start = n + 1 + 3 * i
+        cones.append(CC(C.EXP_PRIMAL if i < 3 else C.EXP_DUAL, [start, start + 1, start + 2]))
+    A_nn = rng.standard_normal((2, n))
+    rows.append(A_nn)
+    bs.append(A_nn @ x0 + 1.0)
+    cones.append(CC(C.NON_NEG, [n + 19, n + 20]))
+    return np.vstack(rows), np.concatenate(bs), rng.standard_normal(n), cones
+
+
+@contextlib.contextmanager
+def _patched_hsde(name, value):
+    """ops.fused_hsde.<name> set to value inside the block."""
+    from pogs_tpu_torch.ops import fused_hsde as fh
+
+    old = getattr(fh, name)
+    setattr(fh, name, value)
+    try:
+        yield
+    finally:
+        setattr(fh, name, old)
+
+
+def forced_blocks(blocks):
+    """Run every K3 launch on ``blocks`` blocks (before the occupancy
+    limit), whatever blocks_for would pick."""
+    return _patched_hsde("blocks_for", lambda m, n, sms: blocks)
+
+
+def forced_tiles(smem_bytes):
+    """Stage K3's vector operands in at most ``smem_bytes`` of shared memory,
+    so that its products run in several column tiles."""
+    return _patched_hsde("SMEM_VECTORS", smem_bytes)
+
+
+def k3_plan(torch, args):
+    """The launch plan K3 takes for these inputs on this card."""
+    from pogs_tpu_torch.ops import fused_hsde as fh
+
+    A, Ky = args[0], args[3]
+    return fh.launch_plan(fh._lib(), A.device, A.dtype, A.shape[0], A.shape[1],
+                          fh.segments(Ky))
+
+
+def f64_solve(args, tol, max_iter):
+    """The plain version in float64 on the same scaled inputs: the
+    independent optimum a float32 run is held to."""
+    from pogs_tpu_torch.ops.fused_hsde import fused_hsde_solve_ref
+
+    up = [a.double() if hasattr(a, "double") else a for a in args]
+    return fused_hsde_solve_ref(*up, tol, tol, max_iter)
+
+
+def optimum_check(args, out_k, out_p, ref):
+    """A long float32 run against ``ref``, the f64 solve of the same scaled
+    problem: the kernel with its plain version's status and ref's, c'x
+    within 1e-3·max(1, |c'x|) (phase 11's rule against an oracle) and
+    x = w_x/τ within 1e-2·max(1, ‖x‖∞) of ref's.  Iterations are recorded
+    and not held: in f32 the summation order alone moves them (lp_ineq
+    1100x300 ends near 2070 or near 2260, the 40x12 LP of
+    tests/test_torch_cuda.py at 1130 to 1200, and their x by up to 3e-3
+    and 2e-5 of ‖x‖∞), and the kernel's order follows its grid and with it
+    the card's SM count."""
+    c_s, n = args[2].double(), args[0].shape[1]
+    x_r = ref["w"][:n] / ref["w"][-1]
+    ov_r = float(c_s @ x_r)
+    rec = {"f64_iters": int(ref["final_iter"]), "f64_objective": ov_r}
+    ok = int(out_k["status"]) == int(out_p["status"]) == int(ref["status"])
+    for who, out in (("kernel", out_k), ("plain", out_p)):
+        x = (out["w"][:n] / out["w"][-1]).double()
+        rec[who + "_objective_rel_err"] = abs(float(c_s @ x) - ov_r) / max(1.0, abs(ov_r))
+        rec[who + "_x_rel_err"] = (float((x - x_r).abs().max())
+                                   / max(1.0, float(x_r.abs().max())))
+    ok = ok and rec["kernel_objective_rel_err"] <= 1e-3 and rec["kernel_x_rel_err"] <= 1e-2
+    return ok, rec
 
 
 def solution_check(args, out_k, out_p):
@@ -905,7 +1037,7 @@ def once_ms(torch, fn):
 def phase_kernel_vs_plain_hsde(torch, P):
     from pogs_tpu_torch.ops.fused_hsde import fused_hsde_solve, fused_hsde_solve_ref
 
-    summary = None
+    summary, failed = None, []
     for name, A, b, c, cones, tol, max_iter, dname, how in k3_cases(P):
         dt = getattr(torch, dname)
         args, At = hsde_inputs(torch, P, A, b, c, cones, dt)
@@ -921,6 +1053,9 @@ def phase_kernel_vs_plain_hsde(torch, P):
         if how == "solution":
             ok, more = solution_check(args, out_k, out_p)
             rec.update(more)
+        elif how == "optimum":
+            ok, more = optimum_check(args, out_k, out_p, f64_solve(args, tol, max_iter))
+            rec.update(more)
         else:
             rel = 1e-5 if dname == "float32" else 1e-9
             lim = rel * max(1.0, float(out_p["w"].abs().max()))
@@ -934,14 +1069,130 @@ def phase_kernel_vs_plain_hsde(torch, P):
         bms, bby = bound_ms(n_bytes, flops, dname)
         ms = cuda_ms(torch, lambda: fused_hsde_solve(*args, tol, tol, max_iter, At=At), 5)
         plain_ms = once_ms(torch, lambda: fused_hsde_solve_ref(*args, tol, tol, max_iter))
+        plan = k3_plan(torch, args)
         rec.update(ms=ms, plain_ms=plain_ms, ms_per_iter=ms / iters,
-                   plain_ms_per_iter=plain_ms / iters, bound_ms=bms, bound_by=bby, ok=ok)
+                   plain_ms_per_iter=plain_ms / iters, bound_ms=bms, bound_by=bby,
+                   blocks=plan["blocks"], barriers_per_iter=plan["barriers_per_iter"],
+                   barriers_per_check=plan["barriers_per_check"], ok=ok)
         emit(rec)
         if not ok:
-            raise AssertionError(f"the cone kernel disagrees with its plain version: {name}")
+            failed.append(name)
         if name == "socp_ball_804x200_f64":
             summary = rec
+    if failed:
+        raise AssertionError(f"the cone kernel disagrees with its plain version: {failed}")
+    hsde_grids(torch, P)
+    hsde_route_table(torch, P)
     return summary
+
+
+def hsde_grids(torch, P):
+    """The cone kernel on grids and tilings the plan does not pick, against
+    the plain version once per case: the multi-exponential case on 1, 3 and
+    8 blocks (exp cones on several owner blocks), socp_ball 804x200 f64 on 1
+    and 132 (the one-block route at a size it does not run), both held at
+    trajectory level; socp_ball and the wide 60x300 LP in f64 with 1 KiB of
+    staging (products in up to 13 column tiles, as every problem with more
+    than 12,288 (f64) or 24,576 (f32) rows or columns runs them), at
+    trajectory level; lp_ineq 1100x300 f32 on 45, 92 and 132 blocks, held
+    to the f64 solve (``optimum_check``)."""
+    from pogs_tpu_torch.ops.fused_hsde import fused_hsde_solve, fused_hsde_solve_ref
+
+    cases = {c[0]: c for c in k3_cases(P)}
+    runs = (("multi_exp_soc_27x6_f64", "blocks", (1, 3, 8)),
+            ("socp_ball_804x200_f64", "blocks", (1, 132)),
+            ("socp_ball_804x200_f64", "tiles", (1024,)),
+            ("wide_eq_lp_60x300_f64", "tiles", (1024,)),
+            ("lp_ineq_1100x300_f32", "blocks", (45, 92, 132)))
+    for name, what, values in runs:
+        _, A, b, c, cones, tol, max_iter, dname, how = cases[name]
+        args, At = hsde_inputs(torch, P, A, b, c, cones, getattr(torch, dname))
+        out_p = fused_hsde_solve_ref(*args, tol, tol, max_iter)
+        ref = f64_solve(args, tol, max_iter) if how == "optimum" else None
+        lim = 1e-9 * max(1.0, float(out_p["w"].abs().max()))
+        rows = []
+        for v in values:
+            with (forced_blocks(v) if what == "blocks" else forced_tiles(v)):
+                out_k = fused_hsde_solve(*args, tol, tol, max_iter, At=At)
+                plan = k3_plan(torch, args)
+            torch.cuda.synchronize()
+            err = float((out_k["w"] - out_p["w"]).abs().max())
+            row = {what: v, "blocks_run": plan["blocks"], "smem": plan["smem"],
+                   "iters": [int(out_k["final_iter"]), int(out_p["final_iter"])],
+                   "max_abs_err": err}
+            if what == "blocks":
+                ok = plan["blocks"] == v
+            else:
+                ok = plan["smem"] < 2 * max(A.shape) * args[0].element_size()
+            if how == "optimum":
+                good, more = optimum_check(args, out_k, out_p, ref)
+                row.update(more)
+                ok = ok and good
+            else:
+                ok = (ok and int(out_k["status"]) == int(out_p["status"])
+                      and abs(int(out_k["final_iter"]) - int(out_p["final_iter"])) <= 2
+                      and err <= lim)
+            row["ok"] = ok
+            rows.append(row)
+        emit({"phase": "kernel_vs_plain_hsde", "case": f"{name}_by_{what}", "w_limit": lim,
+              "runs": rows})
+        if not all(r["ok"] for r in rows):
+            raise AssertionError(f"the cone kernel disagrees with its plain version on "
+                                 f"some {what}: {name}")
+
+
+ROUTE_GRIDS = (1, 2, 4, 8, 16, 33, 66, 132)
+ROUTE_ITERS = 1000
+
+
+ROUTE_LPS = ((64, 48), (90, 60), (128, 96), (200, 120), (300, 200))
+
+
+def hsde_route_table(torch, P):
+    """K3's time per iteration on every grid of ROUTE_GRIDS blocks, f32 and
+    f64, at the sizes of phases 10 and 11 and of random LPs of ROUTE_LPS
+    shapes around the one-block threshold: the record blocks_for is set
+    from (tests/test_torch_hsde.py::test_plan_picks_a_fast_grid).  Each
+    solve runs up to ROUTE_ITERS iterations (tolerance 0), so the launch and
+    the wrapper weigh little beside the kernel; a certificate may end it
+    sooner, so the time is divided by the iterations it ran."""
+    from pogs_tpu_torch.ops.fused_hsde import blocks_for, fused_hsde_solve, segments
+
+    _, fx = cone_problems()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sizes = {name: (A, b, c, cones) for name, A, b, c, cones, _, _, _, _ in k3_cases(P)
+             if not name.endswith("_f32") and "max_iter" not in name}
+    for name, p in (("exp_primal_fixture", fx.exp_primal_fixture()),
+                    ("exp_dual_fixture", fx.exp_dual_fixture()),
+                    ("mixed_fixture", fx.mixed_fixture())):
+        sizes[name] = (p["A"], p["b"], p["c"], P.dims_to_cones(p["dims"]))
+    for m, n in ROUTE_LPS:
+        sizes[f"random_lp_{m}x{n}"] = random_lp(P, m, n)
+    rows = []
+    for name, (A, b, c, cones) in sizes.items():
+        for dt in (torch.float32, torch.float64):
+            args, At = hsde_inputs(torch, P, A, b, c, cones, dt)
+            m, n = A.shape
+            nseg = len(segments(args[3]))
+            cell = {"case": name.replace("_f64", ""), "shape": [m, n],
+                    "dtype": str(dt).replace("torch.", ""), "nseg": nseg, "us_per_iter": {},
+                    "iters": {}}
+            for g in ROUTE_GRIDS:
+                with forced_blocks(g):
+                    run = lambda: fused_hsde_solve(*args, 0.0, 0.0, ROUTE_ITERS, At=At)
+                    it = int(run()["final_iter"])
+                    ms = cuda_ms(torch, run, 2)
+                ran = it + 1 if it < ROUTE_ITERS else ROUTE_ITERS
+                cell["iters"][g] = ran
+                cell["us_per_iter"][g] = 1e3 * ms / ran
+            per = cell["us_per_iter"]
+            cell["fastest"] = min(per, key=per.get)
+            cell["blocks_for"] = blocks_for(m, n, sms)
+            if cell["blocks_for"] in per:
+                cell["blocks_for_over_fastest"] = per[cell["blocks_for"]] / per[cell["fastest"]]
+            rows.append(cell)
+            emit({"phase": "hsde_route_table", **cell})
+    return rows
 
 
 def cone_residuals(P, torch, p, x, tol):
@@ -1091,6 +1342,17 @@ def phase_cone_real_size(torch, P):
         out["eager"] = {"capped_at": cap, "ms_per_solve": e_ms, "ms_per_iter": e_ms / cap,
                         "x_max_abs_diff": float((rk.x - re_.x).abs().max())}
     out["kernel_speedup_per_iter"] = out["eager"]["ms_per_iter"] / out["kernel"]["ms_per_iter"]
+    # The bound of the whole solve (hsde_work), and the per-iteration stream
+    # of A, Aᵀ and Kinv at 3.35 TB/s as the yardstick of one iteration.
+    n_iter = iters + 1 if iters < CONE_MAX_ITER else CONE_MAX_ITER
+    n_bytes, flops = hsde_work(m, n, n_iter, hsde_checks(n_iter, CONE_MAX_ITER), 4)
+    bms, bby = bound_ms(n_bytes, flops, "float32")
+    stream_us = 4 * (2 * m * n + min(m, n) ** 2) / PEAK_BYTES * 1e6
+    k_us = 1e3 * out["kernel"]["ms_per_solve"] / n_iter
+    plan = k3_plan(torch, (k3._init_state["A"], None, None, k3.Ky))
+    out["kernel"].update(bound_ms=bms, bound_by=bby, us_per_iter=k_us,
+                         stream_us_per_iter=stream_us, share_of_stream=stream_us / k_us,
+                         blocks=plan["blocks"], barriers_per_iter=plan["barriers_per_iter"])
     emit(out)
     return out
 

@@ -1,8 +1,9 @@
 // Device code shared by the persistent cooperative solve kernels,
 // fused_admm.cu (the graph-form solve), fused_hsde.cu (the cone solve) and
 // fused_admm_sweep.cu (a batch of graph-form solves): the block shape,
-// fixed-order block and grid reductions (per lane for the batch), and a warp
-// dot product of a matrix row with a vector written inside the kernel.
+// fixed-order block and grid reductions (per lane for the batch), a warp
+// dot product of a matrix row with a vector written inside the kernel, and
+// the cone kernel's barrier, block sums and streaming products.
 //
 // Determinism across blocks: each block writes its partial sums to a global
 // scratch array; after a grid sync every block reduces all partials in the
@@ -12,6 +13,7 @@
 
 #pragma once
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #include "prox.cuh"
@@ -137,32 +139,168 @@ __device__ __forceinline__ T warp_dot(const T* __restrict__ row, const T* vec, i
   return warp_sum((a0 + a1) + (a2 + a3));
 }
 
-// Two dot products of one matrix row, with u and with v, in one pass over
-// the row; each sum in the order of warp_dot.
-template <typename T>
-__device__ __forceinline__ void warp_dot2(const T* __restrict__ row, const T* u, const T* v,
-                                          int len, int lane, T& du, T& dv) {
-  T a0 = T(0), a1 = T(0), b0 = T(0), b1 = T(0);
-  T a2 = T(0), a3 = T(0), b2 = T(0), b3 = T(0);
-  int j = lane;
-  for (; j + 96 < len; j += 128) {
-    const T r0 = row[j], r1 = row[j + 32], r2 = row[j + 64], r3 = row[j + 96];
-    a0 += r0 * __ldcg(u + j);
-    a1 += r1 * __ldcg(u + j + 32);
-    a2 += r2 * __ldcg(u + j + 64);
-    a3 += r3 * __ldcg(u + j + 96);
-    b0 += r0 * __ldcg(v + j);
-    b1 += r1 * __ldcg(v + j + 32);
-    b2 += r2 * __ldcg(v + j + 64);
-    b3 += r3 * __ldcg(v + j + 96);
+// ---------------------------------------------------------------------------
+// The cone kernel's barrier, block sums and streaming products (fused_hsde.cu).
+// ---------------------------------------------------------------------------
+
+// The barrier between two phases: a grid sync, or __syncthreads() when the
+// grid is one block.
+template <typename Grid>
+__device__ __forceinline__ void grid_sync(Grid& grid) {
+  if (gridDim.x == 1) __syncthreads(); else grid.sync();
+}
+
+// Sum NS per-thread values over the block in one fixed order (each warp's
+// butterfly, then the warps in order); every thread receives the sums.
+// smem holds NS * kWarps values.  Every thread must call it.
+template <typename T, int NS>
+__device__ void block_sum(T (&v)[NS], T* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    const T w = warp_sum(v[s]);
+    if (lane == 0) smem[s * kWarps + warp] = w;
   }
-  for (; j < len; j += 32) {
-    const T r0 = row[j];
-    a0 += r0 * __ldcg(u + j);
-    b0 += r0 * __ldcg(v + j);
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    T acc = T(0);
+    for (int w = 0; w < kWarps; ++w) acc += smem[s * kWarps + w];
+    v[s] = acc;
   }
-  du = warp_sum((a0 + a1) + (a2 + a3));
-  dv = warp_sum((b0 + b1) + (b2 + b3));
+  __syncthreads();
+}
+
+// 16 bytes of T.
+template <typename T> struct Vec16;
+template <> struct Vec16<float> {
+  using type = float4;
+  static constexpr int n = 4;
+  static __device__ __forceinline__ void get(const float4& v, float* o) {
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  }
+};
+template <> struct Vec16<double> {
+  using type = double2;
+  static constexpr int n = 2;
+  static __device__ __forceinline__ void get(const double2& v, double* o) {
+    o[0] = v.x; o[1] = v.y;
+  }
+};
+
+// Dot products of the columns [0, len) of one read-only row p with NV
+// vectors staged in shared memory (xs[q * ldx + j] is column j of vector q;
+// xs 16-byte aligned, ldx a multiple of 16 bytes), by one warp.  The row
+// goes as a scalar head up to its first 16-byte boundary, then 16-byte
+// loads, kU per lane issued before any is used (kU * 512 bytes in flight
+// per warp), then a scalar tail.  Where the staged columns of a 16-byte
+// load start on 16 bytes they are read 16 bytes at a time too.  The sums,
+// in one fixed order, are valid in every lane.
+template <typename T, int NV, bool kAligned>
+__device__ __forceinline__ void row_dot_body(const T* __restrict__ p, const T* xs, int ldx,
+                                             int head, int len, int lane, T (&acc)[NV]) {
+  using W = Vec16<T>;
+  constexpr int V = W::n;
+  constexpr int kU = 4;
+  const int nv = (len - head) / V;
+  const typename W::type* pv = reinterpret_cast<const typename W::type*>(p + head);
+  for (int b = 0; b < nv; b += 32 * kU) {
+    typename W::type r[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = b + u * 32 + lane;
+      if (e < nv) r[u] = __ldg(pv + e);
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      const int e = b + u * 32 + lane;
+      if (e < nv) {
+        T a[V];
+        W::get(r[u], a);
+#pragma unroll
+        for (int q = 0; q < NV; ++q) {
+          const T* x = xs + q * ldx + head + e * V;
+          T xv[V];
+          if (kAligned) W::get(*reinterpret_cast<const typename W::type*>(x), xv);
+          else {
+#pragma unroll
+            for (int c = 0; c < V; ++c) xv[c] = x[c];
+          }
+#pragma unroll
+          for (int c = 0; c < V; ++c) acc[q] += a[c] * xv[c];
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int NV>
+__device__ __forceinline__ void row_dot(const T* __restrict__ p, const T* xs, int ldx, int len,
+                                        int lane, T (&out)[NV]) {
+  constexpr int V = Vec16<T>::n;
+  T acc[NV];
+#pragma unroll
+  for (int q = 0; q < NV; ++q) acc[q] = T(0);
+  int head = (int)(((16u - ((unsigned)reinterpret_cast<uintptr_t>(p) & 15u)) & 15u) / sizeof(T));
+  if (head > len) head = len;
+  if (lane < head) {
+    const T a = __ldg(p + lane);
+#pragma unroll
+    for (int q = 0; q < NV; ++q) acc[q] += a * xs[q * ldx + lane];
+  }
+  if (head * sizeof(T) % 16 == 0) row_dot_body<T, NV, true>(p, xs, ldx, head, len, lane, acc);
+  else row_dot_body<T, NV, false>(p, xs, ldx, head, len, lane, acc);
+  const int t0 = head + (len - head) / V * V;
+  if (lane < len - t0) {
+    const T a = __ldg(p + t0 + lane);
+#pragma unroll
+    for (int q = 0; q < NV; ++q) acc[q] += a * xs[q * ldx + t0 + lane];
+  }
+#pragma unroll
+  for (int q = 0; q < NV; ++q) out[q] = warp_sum(acc[q]);
+}
+
+// The products d_q[r] = sum_c M[r][c] x_q[c], q < NV, for the rows of the
+// (rows x C) row-major, read-only M, spread over every block of the grid:
+// row r goes to block r % G, warp (r / G) % kWarps.  Each block stages the
+// vectors in shared memory (xs, `cap` values) one column tile at a time,
+// load(c, v) giving the NV values of column c (read with __ldcg where other
+// blocks wrote them).  With more than one tile a row's sums wait in
+// part[r * NV + q] between tiles and add up in tile order.  epi(r, d) gets
+// row r's sums in every lane of its warp.  Every thread must call it.
+template <typename T, int NV, typename Load, typename Epi>
+__device__ __forceinline__ void products(const T* __restrict__ M, int rows, int C, T* xs, int cap,
+                                         T* part, Load load, Epi epi) {
+  constexpr int V = Vec16<T>::n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ldx = cap / NV / V * V;
+  const int ntiles = (C + ldx - 1) / ldx;
+  const int G = gridDim.x;
+  for (int t = 0; t < ntiles; ++t) {
+    const int c0 = t * ldx, len = C - c0 < ldx ? C - c0 : ldx;
+    __syncthreads();  // the last tile's readers are done
+    for (int j = threadIdx.x; j < len; j += blockDim.x) {
+      T v[NV];
+      load(c0 + j, v);
+#pragma unroll
+      for (int q = 0; q < NV; ++q) xs[q * ldx + j] = v[q];
+    }
+    __syncthreads();
+    for (int r = blockIdx.x + G * warp; r < rows; r += G * kWarps) {
+      T d[NV];
+      row_dot<T, NV>(M + (size_t)r * C + c0, xs, ldx, len, lane, d);
+      if (ntiles > 1) {
+#pragma unroll
+        for (int q = 0; q < NV; ++q) {
+          const T s = (t == 0 ? T(0) : part[(size_t)r * NV + q]) + d[q];
+          if (lane == 0 && t + 1 < ntiles) part[(size_t)r * NV + q] = s;
+          d[q] = s;
+        }
+        if (t + 1 < ntiles) continue;
+      }
+      epi(r, d);
+    }
+  }
 }
 
 }  // namespace pogs

@@ -11,31 +11,72 @@
 // contiguous SOC / exponential segments), the relaxed update with alpha in
 // [1, 1.7]; every 10th iteration (and the last) the primal / dual / gap test
 // on w / tau with adaptive alpha, or, where tau ~ 0, the infeasibility and
-// unboundedness certificates with dominance and the confirmation burst.
+// unboundedness certificates with dominance and the confirmation firing.
 //
-// What bounds it on this card: every iteration reads A, A^T and Kinv once
-// ((2mn + k^2) elements; a check iteration reads A and A^T once more).  At
-// 804x200 that is 0.8 MB in f32, which stays in the 50 MB L2, so the solve
-// is bound by latency: the grid-wide barriers between phases (5 per
-// iteration tall, 7 wide, 4 more on a check) and the short per-warp dot
-// products.  At 8004x2000 it is 144 MB per iteration, beyond L2, so the
-// solve streams from HBM and is bound by memory bandwidth.
+// What bounds it on this card (tools/k3_split.py times every barrier phase;
+// NVIDIA H100 80GB HBM3, 700 W).  A barrier costs about 1.1 us alone at any
+// grid from 1 to 132 blocks, 1.7 to 2.2 us with the reduction of 5 partial
+// sums after it, 0.8 us as a one-block __syncthreads.
+//   * Small problems (up to hsde_plan's ONE_BLOCK_ELEMS): latency.  One
+//     block, 6 to 13 us per iteration without a cone segment, 12 to 32
+//     with exponential cones, whose warp projection (about 7 us in f32) is
+//     the longest phase.
+//   * Mid sizes (90x60 to 300x200): latency, 11 to 16 us per iteration on
+//     8 to 66 blocks; more blocks add barrier wait, fewer stream too little.
+//   * socp_ball 804x200, lp_ineq 1100x300 (A, A^T and Kinv in L2): latency,
+//     17 to 19 us per iteration on 132 blocks: 4 barriers (5 to 7 us with
+//     the waits), 2 reductions (2 us), and products of a few L2 round trips
+//     each (2 to 4 us per phase).
+//   * 8004x2000 f32 (144 MB per iteration, 43 us at 3.35 TB/s): the
+//     products, about 80 us per iteration; A^T u_y and A p_x take 24 us
+//     each (64 MB: 2.6 TB/s), Kinv r 8 us (16 MB).
 //
-// What the design does about it: one launch runs every iteration (no launch
-// or host round trip per iteration); A and A^T come as two row-major copies,
-// so every matrix-vector product is one warp per output row with coalesced
-// loads; a check's four extra products go as one paired pass over A and one
-// over A^T, two dot products per row; the fixed-order reductions of
-// coop.cuh keep every scalar decision (the check slot, the tau branch, the
-// certificate latch, done) identical in every block.
-//
-// Second-order cones: a segment can be as long as m, so its tail norm is a
-// grid-wide sum, one partial slot per segment, reduced before the scale
-// step.  Exponential cones: one thread per 3-element segment runs the whole
-// projection (the 65-point sign scan per branch, three brackets, 50 or 80
-// bisection steps, the closest valid candidate), in __noinline__ device
-// code; the scan points come from the caller, the same table the plain
-// version uses.  Precise expf / exp, no fast math.
+// What the design does about it:
+//   * Launch plan (ops/fused_hsde.py::hsde_plan): the grid is sized to the
+//     problem (one block up to ONE_BLOCK_ELEMS matrix elements, whose
+//     barriers are __syncthreads; else the fewest of 132, 66, 33, ...
+//     blocks that leave each about 8 rows of the longest product, at most
+//     the occupancy limit), and each segment has one owner block.  The plan
+//     depends only on the problem and the SM count.
+//   * Barriers: 4 per ordinary iteration tall (A^T u_y | Kinv r | A p_x |
+//     projection), 6 wide (A r and Kinv q before A^T), and 2 more on a
+//     check, 1 when there is no segment.  Each owner block sums its SOC
+//     segment's tail norm itself (fixed order) and projects the segment in
+//     the phase of the separable rows, so no segment needs a grid-wide sum.
+//     A check computes x_s = w_x / tau and y_s = w_y / tau where it reads
+//     them (the same division), so its products, its sums and the dual
+//     distances share one phase; the primal distances of the segments
+//     (their tail norms need s_s = b - A x_s in full) take the second.
+//     The reductions after a barrier cover only that phase's slots: 2 after
+//     the solve, 5 after the projection, 11 and 2 on a check.
+//   * Products: every matrix-vector product spreads its rows over all
+//     blocks (row r to block r % G), one warp per row.  Each block stages
+//     the vector operand in shared memory, by column tiles when it is
+//     long; the warp streams its row with 16-byte loads, 4 per lane issued
+//     before any is used (32 KB in flight per SM).  Copy route: plain
+//     16-byte loads into registers, no cp.async ring or TMA: each matrix
+//     row is read once per product by one warp, and nothing of it is
+//     reused that shared memory would have to hold.  A check's four
+//     products go as one paired pass over A (x_s, w_x) and one over A^T
+//     (y_s, w_y).
+//   * Precision: products, sums and scalar tests in the working type, as
+//     the plain version.  In f32 a long solve's trajectory is sensitive to
+//     roundoff: lp_ineq 1100x300 at tol 1e-4 ends after about 2070 or 2260
+//     iterations by which way one adaptive-alpha test falls, so the f32
+//     outcome depends on the summation order and with it on the grid
+//     (chip_smoke.py's phase 10 holds such runs to the f64 solve).
+//   * Exponential cones: one warp of the owner block projects a cone.  The
+//     2 x 65 scan points are split over the lanes, each lane's right
+//     neighbour gives it the sign at its last point (a shuffle), a ballot
+//     marks the sign changes, each of six lanes takes the first, second or
+//     third change of a branch in scan order and bisects it (50 steps
+//     primal, 80 dual), and every lane takes the closest valid candidate in
+//     the plain version's order with strict <.  The values are those of the
+//     serial projection, step for step.  A check's two projections per
+//     cone run on two warps at once.  Precise expf / exp, no fast math.
+//   * Every scalar decision (the check slot, the tau branch, the
+//     certificate latch, done) is identical in every block: fixed-order
+//     sums (coop.cuh), no float atomics.
 
 #include <cfloat>
 #include <cstdint>
@@ -53,6 +94,7 @@ using namespace pogs;
 constexpr int kMaxSeg = 16;
 constexpr int kGrid = 65;   // exp-cone scan points per branch
 constexpr int kKeep = 3;    // brackets kept per branch
+constexpr unsigned kFull = 0xffffffffu;
 
 // Row codes: 0 free (in no cone), the separable kinds, or kSegRow + the
 // segment's index.
@@ -67,19 +109,16 @@ constexpr double K_TAU_TOL = 1e-8, K_TAU_REL = 1e-6, K_KAPPA_TOL = 1e-6;
 constexpr int K_CHECK_EVERY = 10;
 constexpr double K_CERT_CROSS = 0.1, K_CERT_CONFIRM = 0.25;
 
-// Partial-sum slots.
+// Partial-sum slots, by the phase that writes them.
 enum Slot {
-  S_CPX = 0, S_BPY,                                            // lin solve
-  S_FPX, S_CWX, S_BWY, S_WX2, S_WY2,                           // x part
-  S_SEG_V, S_FPY = S_SEG_V + kMaxSeg,                          // y part
-  S_CXS, S_BYS, S_YS2, S_RDC, S_YCH,                           // check 1
-  S_SEG_YS, S_SEG_WY = S_SEG_YS + kMaxSeg,
-  S_SS2 = S_SEG_WY + kMaxSeg, S_RPRI, S_AXD, S_RDUA, S_ATY2,   // check 2
-  S_ATYH2, S_RDC2, S_YCH2,
-  S_SEG_SS, S_SEG_NAX = S_SEG_SS + kMaxSeg,                    // check 3
-  S_RPRI2 = S_SEG_NAX + kMaxSeg, S_AXD2,                       // check 4
+  S_CPX = 0, S_BPY,                                         // the solve: 2
+  S_FP, S_CWX, S_BWY, S_WX2, S_WY2,                         // projection: 5
+  S_CXS, S_BYS, S_YS2, S_RDC, S_YCH, S_SS2, S_RPRI, S_AXD,  // check 1: 11
+  S_RDUA, S_ATY2, S_ATYH2,
+  S_RPRI2, S_AXD2,                                          // check 2: 2
   kSlots
 };
+constexpr int kProjSlots = S_CXS - S_FP, kCheckSlots = S_RPRI2 - S_CXS;
 
 // The exponential projection's tolerance and exponent bound, and the
 // largest finite value (finfo.max), by type.
@@ -128,62 +167,88 @@ template <typename T> struct ExpPoint {
   }
 };
 
+// Bit l of x to bit 2l.
+__device__ __forceinline__ unsigned long long spread(unsigned x) {
+  unsigned long long v = x;
+  v = (v | (v << 16)) & 0x0000FFFF0000FFFFull;
+  v = (v | (v << 8)) & 0x00FF00FF00FF00FFull;
+  v = (v | (v << 4)) & 0x0F0F0F0F0F0F0F0Full;
+  v = (v | (v << 2)) & 0x3333333333333333ull;
+  v = (v | (v << 1)) & 0x5555555555555555ull;
+  return v;
+}
+
 // Projection of (r, s, t) onto the exponential cone (cones/projections.py:
-// _project_exp_primal_impl).  grid: the (2, 65) scan points.
+// _project_exp_primal_impl) by one warp; every lane must call it and every
+// lane receives the result.  grid: the (2, 65) scan points.  Lane l scans
+// points 2l and 2l + 1 of each branch and takes the sign at 2l + 2 from
+// lane l + 1 (lane 31 computes point 64), so interval i (points i, i + 1)
+// is bit i of a branch's 64-bit change mask.  Lanes 0-5 bisect the first
+// three changes of branch 0, then of branch 1, as the serial scan keeps
+// them; the candidates are then taken in the serial order.
 template <typename T>
-__device__ __noinline__ V3<T> exp_project(T r, T s, T t, int iters, const T* grid) {
+__device__ __forceinline__ V3<T> exp_project_warp(T r, T s, T t, int iters, const T* grid,
+                                               int lane) {
   const ExpPoint<T> P{r, s, t};
   const T tol = ExpC<T>::tol();
   const T INF = ExpC<T>::big();
+  unsigned long long flips0 = 0, flips1 = 0;
+#pragma unroll
+  for (int br = 0; br < 2; ++br) {
+    const T* us = grid + br * kGrid;
+    const T s0 = P.sign_F(us[2 * lane]), s1 = P.sign_F(us[2 * lane + 1]);
+    T s2 = __shfl_down_sync(kFull, s0, 1);
+    if (lane == 31) s2 = P.sign_F(us[2 * lane + 2]);
+    const unsigned a = __ballot_sync(kFull, s0 * s1 <= T(0));
+    const unsigned b = __ballot_sync(kFull, s1 * s2 <= T(0));
+    const unsigned long long f = spread(a) | (spread(b) << 1);
+    if (br == 0) flips0 = f; else flips1 = f;
+  }
+  V3<T> c{T(0), T(0), T(0)};
+  int ok = 0;
+  if (lane < 2 * kKeep) {
+    const int br = lane / kKeep;
+    unsigned long long f = br == 0 ? flips0 : flips1;
+    for (int j = 0; j < lane % kKeep; ++j) f &= f - 1;  // drop the earlier changes
+    if (f != 0) {
+      const int i = __ffsll((long long)f) - 1;
+      const T* us = grid + br * kGrid;
+      const T u = P.bisect(us[i], us[i + 1], iters);
+      const T w = safe_exp(u);
+      T denom = w * w + u;
+      if (m_fabs(denom) < T(1e-30)) denom = T(1e-30);
+      const T num = (r + t * w) / denom;
+      const T z = w * num;
+      ok = z > T(0) && z - t >= -tol * (T(1) + m_fabs(t));
+      c = V3<T>{u * num, num, z};
+    }
+  }
   // Candidates in the order of the plain version: v, ray, 0, six roots.
   V3<T> best{r, s, t};
   const T spos = tmax(s, Lim<T>::tiny());
   const bool in_cone = (s > tol && spos * safe_exp(r / spos) <= t + tol) ||
                        (m_fabs(s) <= tol && r <= tol && t >= -tol);
   T best_d = in_cone ? T(0) : INF;  // d2(v) = 0
-  auto consider = [&](const V3<T>& c, bool valid) {
-    const T dx = c.x - r, dy = c.y - s, dz = c.z - t;
+  auto consider = [&](const V3<T>& v, bool valid) {
+    const T dx = v.x - r, dy = v.y - s, dz = v.z - t;
     const T d = valid ? (dx * dx + dy * dy) + dz * dz : INF;
-    if (d < best_d) { best = c; best_d = d; }
+    if (d < best_d) { best = v; best_d = d; }
   };
   consider(V3<T>{neg(r), T(0), pos(t)}, true);
   consider(V3<T>{T(0), T(0), T(0)}, true);
-  for (int br = 0; br < 2; ++br) {
-    const T* us = grid + br * kGrid;
-    T lo[kKeep], hi[kKeep];
-    bool has[kKeep];
-    for (int j = 0; j < kKeep; ++j) { lo[j] = us[0]; hi[j] = us[0]; has[j] = false; }
-    T prev_u = us[0], prev_s = P.sign_F(prev_u);
-    int count = 0;
-    for (int g = 1; g < kGrid; ++g) {
-      const T cur_u = us[g], cur_s = P.sign_F(cur_u);
-      if (prev_s * cur_s <= T(0)) {
-        if (count < kKeep) { lo[count] = prev_u; hi[count] = cur_u; has[count] = true; }
-        ++count;
-      }
-      prev_u = cur_u;
-      prev_s = cur_s;
-    }
-    for (int j = 0; j < kKeep; ++j) {
-      if (!has[j]) continue;  // an invalid candidate is never taken
-      const T u = P.bisect(lo[j], hi[j], iters);
-      const T w = safe_exp(u);
-      T denom = w * w + u;
-      if (m_fabs(denom) < T(1e-30)) denom = T(1e-30);
-      const T num = (r + t * w) / denom;
-      const T z = w * num;
-      const bool feas = z > T(0) && z - t >= -tol * (T(1) + m_fabs(t));
-      consider(V3<T>{u * num, num, z}, feas);
-    }
+  for (int j = 0; j < 2 * kKeep; ++j) {
+    const V3<T> cj{__shfl_sync(kFull, c.x, j), __shfl_sync(kFull, c.y, j),
+                   __shfl_sync(kFull, c.z, j)};
+    consider(cj, __shfl_sync(kFull, ok, j) != 0);  // an invalid candidate is never taken
   }
   return best;
 }
 
-// Projection of a 3-element segment onto the cone of `kind`.
+// Projection of a 3-element segment onto the cone of `kind`, by one warp.
 template <typename T>
-__device__ V3<T> exp_segment(int kind, T a, T b, T c, const T* grid) {
-  if (kind == kExpPrimal) return exp_project(a, b, c, 50, grid);
-  const V3<T> p = exp_project(-a, -b, -c, 80, grid);  // Moreau
+__device__ V3<T> exp_segment(int kind, T a, T b, T c, const T* grid, int lane) {
+  if (kind == kExpPrimal) return exp_project_warp(a, b, c, 50, grid, lane);
+  const V3<T> p = exp_project_warp(-a, -b, -c, 80, grid, lane);  // Moreau
   return V3<T>{a + p.x, b + p.y, c + p.z};
 }
 
@@ -209,6 +274,28 @@ template <typename T> __device__ __forceinline__ T soc_row(bool head, T v, T p, 
   return v * (polar ? T(0) : (general ? scale : T(1)));
 }
 
+// The squared distances of two vectors' rows [h, h + len) of one SOC
+// segment from the cone (self-dual), by the owner block: val(i, 0 | 1)
+// gives row i of each; both are added to acc0 / acc1 of the calling thread.
+template <typename T, typename Val>
+__device__ __forceinline__ void soc_dist2(int h, int len, Val val, T* smem, T& acc0, T& acc1) {
+  const T p0 = val(h, 0), p1 = val(h, 1);
+  T tail[2] = {T(0), T(0)};
+  for (int i = h + 1 + threadIdx.x; i < h + len; i += blockDim.x) {
+    const T a = val(i, 0), b = val(i, 1);
+    tail[0] += a * a;
+    tail[1] += b * b;
+  }
+  block_sum<T, 2>(tail, smem);
+  const T n0 = m_sqrt(tail[0]), n1 = m_sqrt(tail[1]);
+  for (int i = h + threadIdx.x; i < h + len; i += blockDim.x) {
+    const T a = val(i, 0), b = val(i, 1);
+    const T da = a - soc_row(i == h, a, p0, n0), db = b - soc_row(i == h, b, p1, n1);
+    acc0 += da * da;
+    acc1 += db * db;
+  }
+}
+
 template <typename T> struct Params {
   const T* A;       // (m, n) row-major, equilibrated
   const T* At;      // (n, m) row-major, A transposed
@@ -228,360 +315,308 @@ template <typename T> struct Params {
   T* r;             // (n) work: ux - A^T uy
   T* px;            // (n) work
   T* py;            // (m) work
-  T* q;             // (m) work (wide): A r, then Kinv A r
-  T* q2;            // (m) work (wide)
-  T* vy;            // (m) work: 2 wy - uy
-  T* xs;            // (n) work (check): wx / tau
-  T* ys;            // (m) work (check): wy / tau
+  T* q;             // (m) work (wide): A r
+  T* q2;            // (m) work (wide): Kinv A r
   T* ss;            // (m) work (check): b - A xs
   T* nax;           // (m) work (check): -A wx
-  T* partials;      // (kSlots, grid) work
-  int m, n, nseg;
+  T* part;          // (2 max(m, n)) work: row sums between column tiles
+  T* partials;      // (kSlots, grid) work: partial sums
+  int m, n, nseg, smem_bytes;
   int seg_kind[kMaxSeg], seg_start[kMaxSeg], seg_len[kMaxSeg];  // primal kinds
+  int seg_owner[kMaxSeg];                                       // owner block
   T abs_tol, rel_tol;
   int max_iter;
 };
 
+// Run task(s, q) for q < ntask on each exponential cone s this block owns:
+// the e-th such cone's task q on warp (e * ntask + q) % kWarps.  Warp-uniform.
+template <typename T, typename Task>
+__device__ __forceinline__ void exp_tasks(const Params<T>& P, int ntask, Task task) {
+  const int warp = threadIdx.x >> 5;
+  int e = 0;
+  for (int s = 0; s < P.nseg; ++s) {
+    if (P.seg_owner[s] != (int)blockIdx.x || P.seg_kind[s] == kSOC) continue;
+    for (int q = 0; q < ntask; ++q)
+      if ((e * ntask + q) % kWarps == warp) task(s, q);
+    ++e;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1) fused_hsde_kernel(Params<T> P) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ T smem[2 * kMaxSeg * kWarps];
+  extern __shared__ __align__(16) unsigned char dyn[];
+  T* const xs = reinterpret_cast<T*>(dyn);  // staged vector operands
+  __shared__ T smem[kCheckSlots * kWarps];
   __shared__ T red[kSlots];
+  T* const part = P.part;
+  T* const partials = P.partials;
 
-  const int m = P.m, n = P.n, nseg = P.nseg;
+  const int m = P.m, n = P.n, nseg = P.nseg, cap = P.smem_bytes / (int)sizeof(T);
   const bool tall = m >= n;
   const int tid = blockIdx.x * blockDim.x + threadIdx.x;
   const int nthreads = gridDim.x * blockDim.x;
   const int lane = threadIdx.x & 31;
-  const int gwarp = tid >> 5;
-  const int nwarps = nthreads >> 5;
-  // Exponential segment s is projected by lane 0 of warp s of block 0.
-  const int my_seg = (blockIdx.x == 0 && lane == 0) ? (int)(threadIdx.x >> 5) : -1;
-  const bool exp_thread = my_seg >= 0 && my_seg < nseg && P.seg_kind[my_seg] != kSOC;
 
   const T one = T(1), zero = T(0);
-  const T abs_tol = P.abs_tol, rel_tol = P.rel_tol;
+  const T abs_tol = T(P.abs_tol), rel_tol = T(P.rel_tol);
   const T s_den = P.scal[0], b_norm = P.scal[1], c_norm = P.scal[2];
   const T sqm = m_sqrt(T(m)), sqn = m_sqrt(T(n));
   const T fp_tol = abs_tol * m_sqrt(T(m + n + 1)) + rel_tol;
   const T cert_tol = abs_tol + rel_tol;
   const T eps_d = T(1e-12);
 
-  T ut = P.scal[3], wt = zero, alpha = T(K_ALPHA_MIN), fp = one, prev_resid = ExpC<T>::big();
+  T ut = P.scal[3], wt = zero, alpha = T(K_ALPHA_MIN), fp = one;
+  T prev_resid = ExpC<T>::big();
   T r_pri = zero, r_dua = zero, gap = zero;
   int k = 0, status = kMaxIter, cert_pending = 0;
 
-  // wy and vy of row i from this iteration's solve (one formula for every
-  // place that needs them).
+  // wy and vy = 2 wy - uy of row i from this iteration's solve (one formula
+  // for every place that needs them).
   auto wy_at = [&](int i, T u_tau) { return __ldcg(P.py + i) - P.ty[i] * u_tau; };
+  auto vy_at = [&](int i, T u_tau) { return T(2) * wy_at(i, u_tau) - __ldcg(P.uy + i); };
+  auto ld = [](const T* v) { return [v](int c, T (&o)[1]) { o[0] = __ldcg(v + c); }; };
+  auto sq = [](T x) { return x * x; };
 
   for (;;) {
     // --- The SMW solve: px = Kinv (ux - A^T uy), py = uy + A px. --------
-    for (int rr = gwarp; rr < n; rr += nwarps) {
-      const T s = warp_dot(P.At + (size_t)rr * m, P.uy, m, lane);
-      if (lane == 0) P.r[rr] = __ldcg(P.ux + rr) - s;
-    }
-    grid.sync();
+    products<T, 1>(P.At, n, m, xs, cap, part, ld(P.uy), [&](int rr, const T (&d)[1]) {
+      if (lane == 0) P.r[rr] = __ldcg(P.ux + rr) - d[0];
+    });
+    grid_sync(grid);
     {
-      T v[1] = {zero};
+      T v[1] = {T(0)};
       if (tall) {
-        for (int rr = gwarp; rr < n; rr += nwarps) {
-          const T s = warp_dot(P.Kinv + (size_t)rr * n, P.r, n, lane);
-          if (lane == 0) { P.px[rr] = s; v[0] += P.c[rr] * s; }
-        }
-      } else {
-        // Woodbury: px = r - A^T Kinv (A r), Kinv the m x m inverse.
-        for (int i = gwarp; i < m; i += nwarps) {
-          const T s = warp_dot(P.A + (size_t)i * n, P.r, n, lane);
-          if (lane == 0) P.q[i] = s;
-        }
-        grid.sync();
-        for (int i = gwarp; i < m; i += nwarps) {
-          const T s = warp_dot(P.Kinv + (size_t)i * m, P.q, m, lane);
-          if (lane == 0) P.q2[i] = s;
-        }
-        grid.sync();
-        for (int rr = gwarp; rr < n; rr += nwarps) {
-          const T s = warp_dot(P.At + (size_t)rr * m, P.q2, m, lane);
+        products<T, 1>(P.Kinv, n, n, xs, cap, part, ld(P.r), [&](int rr, const T (&d)[1]) {
           if (lane == 0) {
-            const T p = __ldcg(P.r + rr) - s;
+            const T p = d[0];
             P.px[rr] = p;
             v[0] += P.c[rr] * p;
           }
-        }
+        });
+      } else {
+        // Woodbury: px = r - A^T Kinv (A r), Kinv the m x m inverse.
+        products<T, 1>(P.A, m, n, xs, cap, part, ld(P.r), [&](int i, const T (&d)[1]) {
+          if (lane == 0) P.q[i] = d[0];
+        });
+        grid_sync(grid);
+        products<T, 1>(P.Kinv, m, m, xs, cap, part, ld(P.q), [&](int i, const T (&d)[1]) {
+          if (lane == 0) P.q2[i] = d[0];
+        });
+        grid_sync(grid);
+        products<T, 1>(P.At, n, m, xs, cap, part, ld(P.q2), [&](int rr, const T (&d)[1]) {
+          if (lane == 0) {
+            const T p = __ldcg(P.r + rr) - d[0];
+            P.px[rr] = p;
+            v[0] += P.c[rr] * p;
+          }
+        });
       }
-      block_partials<T, 1>(v, P.partials, S_CPX, smem);
+      block_partials<T, 1>(v, partials, S_CPX, smem);
     }
-    grid.sync();
+    grid_sync(grid);
     {
-      T v[1] = {zero};
-      for (int i = gwarp; i < m; i += nwarps) {
-        const T s = warp_dot(P.A + (size_t)i * n, P.px, n, lane);
+      T v[1] = {T(0)};
+      products<T, 1>(P.A, m, n, xs, cap, part, ld(P.px), [&](int i, const T (&d)[1]) {
         if (lane == 0) {
-          const T p = __ldcg(P.uy + i) + s;
+          const T p = __ldcg(P.uy + i) + d[0];
           P.py[i] = p;
           v[0] += P.b[i] * p;
         }
-      }
-      block_partials<T, 1>(v, P.partials, S_BPY, smem);
+      });
+      block_partials<T, 1>(v, partials, S_BPY, smem);
     }
-    grid.sync();
-    grid_partials(P.partials, S_CPX, 2, red);
+    grid_sync(grid);
+    grid_partials(partials, S_CPX, 2, red);
     const T u_tau = (ut + (red[S_CPX] + red[S_BPY])) / s_den;
     wt = u_tau;
     const T vt = T(2) * wt - ut;
     const T zt = pos(vt);
 
-    // --- w, v = 2w - u, and the update of the x part and the separable rows.
+    // --- w, v = 2w - u, the projection and the relaxed update. ------------
     {
-      T v[5] = {zero, zero, zero, zero, zero};  // fp_x, c.wx, b.wy, |wx|^2, |wy|^2
+      T v[kProjSlots] = {T(0), T(0), T(0), T(0), T(0)};  // fp, c.wx, b.wy, |wx|^2, |wy|^2
       for (int j = tid; j < n; j += nthreads) {
         const T cu = __ldcg(P.ux + j);
         const T w = __ldcg(P.px + j) - P.tx[j] * u_tau;
         const T vx = T(2) * w - cu;
         P.ux[j] = cu + alpha * (vx - w);
         P.wx[j] = w;
-        v[0] += (vx - w) * (vx - w);
+        v[0] += sq(vx - w);
         v[1] += P.c[j] * w;
-        v[3] += w * w;
+        v[3] += sq(w);
       }
       for (int i = tid; i < m; i += nthreads) {
         const T cu = __ldcg(P.uy + i);
         const T w = wy_at(i, u_tau);
-        const T vy = T(2) * w - cu;
         P.wy[i] = w;
-        P.vy[i] = vy;
         v[2] += P.b[i] * w;
-        v[4] += w * w;
+        v[4] += sq(w);
         const int code = P.code[i];
         if (code < kSegRow) {
-          const T z = proj_sep(code, vy, true);
+          const T z = proj_sep(code, T(2) * w - cu, true);
           P.uy[i] = cu + alpha * (z - w);
-          v[0] += (z - w) * (z - w);
+          v[0] += sq(z - w);
         }
       }
-      block_partials<T, 5>(v, P.partials, S_FPX, smem);
-      // SOC tail norms of vy, one slot per segment.
-      T sv[kMaxSeg];
-#pragma unroll
-      for (int s = 0; s < kMaxSeg; ++s) {
-        sv[s] = zero;
-        if (s < nseg && P.seg_kind[s] == kSOC) {
-          const int end = P.seg_start[s] + P.seg_len[s];
-          for (int i = P.seg_start[s] + 1 + tid; i < end; i += nthreads) {
-            const T vy = T(2) * wy_at(i, u_tau) - __ldcg(P.uy + i);
-            sv[s] += vy * vy;
-          }
+      // The segments this block owns: an SOC segment by the whole block
+      // (its tail norm summed here), an exponential cone by one warp.
+      for (int s = 0; s < nseg; ++s) {
+        if (P.seg_owner[s] != (int)blockIdx.x || P.seg_kind[s] != kSOC) continue;
+        const int h = P.seg_start[s], end = h + P.seg_len[s];
+        const T p = vy_at(h, u_tau);  // read by every thread before any write
+        T tail[1] = {T(0)};
+        for (int i = h + 1 + threadIdx.x; i < end; i += blockDim.x) tail[0] += sq(vy_at(i, u_tau));
+        block_sum<T, 1>(tail, smem);
+        const T nrm = m_sqrt(tail[0]);
+        for (int i = h + threadIdx.x; i < end; i += blockDim.x) {
+          const T cu = __ldcg(P.uy + i);
+          const T w = wy_at(i, u_tau);
+          const T z = soc_row(i == h, T(2) * w - cu, p, nrm);
+          P.uy[i] = cu + alpha * (z - w);
+          v[0] += sq(z - w);
         }
       }
-      block_partials<T, kMaxSeg>(sv, P.partials, S_SEG_V, smem);
-    }
-    grid.sync();
-    grid_partials(P.partials, S_FPX, 5 + kMaxSeg, red);
-
-    // --- The segment rows of the dual projection, and the fixed-point residual.
-    {
-      T v[1] = {zero};
-      for (int i = tid; i < m; i += nthreads) {
-        const int code = P.code[i];
-        if (code < kSegRow) continue;
-        const int s = code - kSegRow;
-        if (P.seg_kind[s] != kSOC) continue;
+      exp_tasks(P, 1, [&](int s, int) {
         const int h = P.seg_start[s];
-        const T vy = __ldcg(P.vy + i), w = __ldcg(P.wy + i);
-        const T z = soc_row(i == h, vy, __ldcg(P.vy + h), m_sqrt(red[S_SEG_V + s]));
-        P.uy[i] = __ldcg(P.uy + i) + alpha * (z - w);
-        v[0] += (z - w) * (z - w);
-      }
-      if (exp_thread) {
-        const int h = P.seg_start[my_seg];
-        const V3<T> z = exp_segment(dual_kind(P.seg_kind[my_seg]), __ldcg(P.vy + h),
-                                    __ldcg(P.vy + h + 1), __ldcg(P.vy + h + 2), P.grid);
-        const T zz[3] = {z.x, z.y, z.z};
-        for (int e = 0; e < 3; ++e) {
-          const T w = __ldcg(P.wy + h + e);
-          P.uy[h + e] = __ldcg(P.uy + h + e) + alpha * (zz[e] - w);
-          v[0] += (zz[e] - w) * (zz[e] - w);
+        const T a = vy_at(h, u_tau), b = vy_at(h + 1, u_tau), c = vy_at(h + 2, u_tau);
+        const V3<T> z = exp_segment(dual_kind(P.seg_kind[s]), a, b, c, P.grid, lane);
+        if (lane < 3) {
+          const T ze = lane == 0 ? z.x : (lane == 1 ? z.y : z.z);
+          const T w = wy_at(h + lane, u_tau);
+          P.uy[h + lane] = __ldcg(P.uy + h + lane) + alpha * (ze - w);
+          v[0] += sq(ze - w);
         }
-      }
-      block_partials<T, 1>(v, P.partials, S_FPY, smem);
+      });
+      block_partials<T, kProjSlots>(v, partials, S_FP, smem);
     }
-    grid.sync();
-    grid_partials(P.partials, S_FPY, 1, red);
-    fp = m_sqrt((red[S_FPX] + red[S_FPY]) + (zt - wt) * (zt - wt));
+    grid_sync(grid);
+    grid_partials(partials, S_FP, kProjSlots, red);
+    fp = m_sqrt(red[S_FP] + sq(zt - wt));
     ut = ut + alpha * (zt - wt);
 
     bool done_new = false;
     if (k % K_CHECK_EVERY == 0 || k >= P.max_iter - 1) {
       // --- The check: both tau branches, selected. -------------------------
       const T cwx = red[S_CWX], bwy = red[S_BWY], wx2 = red[S_WX2], wy2 = red[S_WY2];
-      const T w_norm = m_sqrt(wx2 + wy2 + wt * wt);
+      const T w_norm = m_sqrt(wx2 + wy2 + sq(wt));
       const bool tau_ok = wt > tmax(T(K_TAU_TOL), T(K_TAU_REL) * w_norm);
       const T tau = tau_ok ? wt : one;
 
-      // C1: x_s, y_s; the separable rows of the dual distances of y_s and w_y.
+      // C1: one paired pass over A (A x_s, A w_x) and one over A^T (A^T y_s,
+      // A^T w_y), x_s = w_x / tau and y_s = w_y / tau computed where read;
+      // the dual distances of y_s and w_y, the separable rows' primal
+      // distances of s_s and -A w_x.
       {
-        T v[5] = {zero, zero, zero, zero, zero};  // c.xs, b.ys, |ys|^2, rdc, ych
-        for (int j = tid; j < n; j += nthreads) {
-          const T x = __ldcg(P.wx + j) / tau;
-          P.xs[j] = x;
-          v[0] += P.c[j] * x;
-        }
+        T v[kCheckSlots];
+#pragma unroll
+        for (int s = 0; s < kCheckSlots; ++s) v[s] = T(0);
+        auto vc = [&](int slot) -> T& { return v[slot - S_CXS]; };  // constant slots only
+        products<T, 2>(P.A, m, n, xs, cap, part,
+                          [&](int c, T (&o)[2]) {
+                            const T w = __ldcg(P.wx + c);
+                            o[0] = w / tau;
+                            o[1] = w;
+                          },
+                          [&](int i, const T (&d)[2]) {
+                            if (lane == 0) {
+                              const T s = P.b[i] - d[0], na = -d[1];
+                              P.ss[i] = s;
+                              P.nax[i] = na;
+                              vc(S_SS2) += sq(s);
+                              const int code = P.code[i];
+                              if (code < kSegRow) {
+                                vc(S_RPRI) += sq(s - proj_sep(code, s, false));
+                                vc(S_AXD) += sq(na - proj_sep(code, na, false));
+                              }
+                            }
+                          });
+        products<T, 2>(P.At, n, m, xs, cap, part,
+                          [&](int c, T (&o)[2]) {
+                            const T w = __ldcg(P.wy + c);
+                            o[0] = w / tau;
+                            o[1] = w;
+                          },
+                          [&](int j, const T (&d)[2]) {
+                            if (lane == 0) {
+                              const T aty = d[0], atyh = d[1];
+                              vc(S_RDUA) += sq(aty + P.c[j]);
+                              vc(S_ATY2) += sq(aty);
+                              vc(S_ATYH2) += sq(atyh);
+                            }
+                          });
+        for (int j = tid; j < n; j += nthreads)
+          vc(S_CXS) += P.c[j] * (__ldcg(P.wx + j) / tau);
         for (int i = tid; i < m; i += nthreads) {
           const T w = __ldcg(P.wy + i);
           const T y = w / tau;
-          P.ys[i] = y;
-          v[1] += P.b[i] * y;
-          v[2] += y * y;
+          vc(S_BYS) += P.b[i] * y;
+          vc(S_YS2) += sq(y);
           const int code = P.code[i];
           if (code < kSegRow) {
-            const T dy = y - proj_sep(code, y, true), dw = w - proj_sep(code, w, true);
-            v[3] += dy * dy;
-            v[4] += dw * dw;
+            vc(S_RDC) += sq(y - proj_sep(code, y, true));
+            vc(S_YCH) += sq(w - proj_sep(code, w, true));
           }
         }
-        block_partials<T, 5>(v, P.partials, S_CXS, smem);
-        T sy[kMaxSeg], sw[kMaxSeg];
-#pragma unroll
-        for (int s = 0; s < kMaxSeg; ++s) {
-          sy[s] = zero;
-          sw[s] = zero;
-          if (s < nseg && P.seg_kind[s] == kSOC) {
-            const int end = P.seg_start[s] + P.seg_len[s];
-            for (int i = P.seg_start[s] + 1 + tid; i < end; i += nthreads) {
-              const T w = __ldcg(P.wy + i);
-              const T y = w / tau;
-              sy[s] += y * y;
-              sw[s] += w * w;
-            }
-          }
+        for (int s = 0; s < nseg; ++s) {
+          if (P.seg_owner[s] != (int)blockIdx.x || P.seg_kind[s] != kSOC) continue;
+          soc_dist2<T>(P.seg_start[s], P.seg_len[s], [&](int i, int q) {
+            const T w = __ldcg(P.wy + i);
+            return q == 0 ? w / tau : w;
+          }, smem, vc(S_RDC), vc(S_YCH));
         }
-        block_partials<T, kMaxSeg>(sy, P.partials, S_SEG_YS, smem);
-        block_partials<T, kMaxSeg>(sw, P.partials, S_SEG_WY, smem);
-      }
-      grid.sync();
-      grid_partials(P.partials, S_CXS, 5 + 2 * kMaxSeg, red);
-
-      // C2: one paired pass over A (A x_s, A w_x) and one over A^T (A^T y_s,
-      // A^T w_y); the segment rows of the dual distances.
-      {
-        T v[8] = {zero, zero, zero, zero, zero, zero, zero, zero};
-        // |ss|^2, r_pri, ax_dist, r_dua, |aty|^2, |aty_h|^2, rdc, ych
-        for (int rr = gwarp; rr < m + n; rr += nwarps) {
-          if (rr < m) {
-            T ax, axh;
-            warp_dot2(P.A + (size_t)rr * n, P.xs, P.wx, n, lane, ax, axh);
-            if (lane == 0) {
-              const T s = P.b[rr] - ax, na = -axh;
-              P.ss[rr] = s;
-              P.nax[rr] = na;
-              v[0] += s * s;
-              const int code = P.code[rr];
-              if (code < kSegRow) {
-                const T ds = s - proj_sep(code, s, false), dn = na - proj_sep(code, na, false);
-                v[1] += ds * ds;
-                v[2] += dn * dn;
-              }
-            }
-          } else {
-            const int j = rr - m;
-            T aty, atyh;
-            warp_dot2(P.At + (size_t)j * m, P.ys, P.wy, m, lane, aty, atyh);
-            if (lane == 0) {
-              v[3] += (aty + P.c[j]) * (aty + P.c[j]);
-              v[4] += aty * aty;
-              v[5] += atyh * atyh;
-            }
-          }
-        }
-        for (int i = tid; i < m; i += nthreads) {
-          const int code = P.code[i];
-          if (code < kSegRow) continue;
-          const int s = code - kSegRow;
-          if (P.seg_kind[s] != kSOC) continue;
+        exp_tasks(P, 2, [&](int s, int q) {
           const int h = P.seg_start[s];
-          const T y = __ldcg(P.ys + i), w = __ldcg(P.wy + i);
-          const T dy = y - soc_row(i == h, y, __ldcg(P.ys + h), m_sqrt(red[S_SEG_YS + s]));
-          const T dw = w - soc_row(i == h, w, __ldcg(P.wy + h), m_sqrt(red[S_SEG_WY + s]));
-          v[6] += dy * dy;
-          v[7] += dw * dw;
-        }
-        if (exp_thread) {
-          const int h = P.seg_start[my_seg], kind = dual_kind(P.seg_kind[my_seg]);
-          const T* src[2] = {P.ys, P.wy};
-          for (int q = 0; q < 2; ++q) {
-            const T a = __ldcg(src[q] + h), b = __ldcg(src[q] + h + 1), c = __ldcg(src[q] + h + 2);
-            const V3<T> z = exp_segment(kind, a, b, c, P.grid);
-            v[6 + q] += ((a - z.x) * (a - z.x) + (b - z.y) * (b - z.y)) + (c - z.z) * (c - z.z);
-          }
-        }
-        block_partials<T, 8>(v, P.partials, S_SS2, smem);
+          T a = __ldcg(P.wy + h), b = __ldcg(P.wy + h + 1), c = __ldcg(P.wy + h + 2);
+          if (q == 0) { a = a / tau; b = b / tau; c = c / tau; }
+          const V3<T> z = exp_segment(dual_kind(P.seg_kind[s]), a, b, c, P.grid, lane);
+          const T d = (sq(a - z.x) + sq(b - z.y)) + sq(c - z.z);
+          if (lane == 0 && q == 0) vc(S_RDC) += d;
+          if (lane == 0 && q == 1) vc(S_YCH) += d;
+        });
+        block_partials<T, kCheckSlots>(v, partials, S_CXS, smem);
       }
-      grid.sync();
-      grid_partials(P.partials, S_SS2, 8, red);
+      grid_sync(grid);
+      grid_partials(partials, S_CXS, kCheckSlots, red);
 
-      // C3: the SOC tail norms of s_s and -A w_x.
-      {
-        T ss[kMaxSeg], sn[kMaxSeg];
-#pragma unroll
-        for (int s = 0; s < kMaxSeg; ++s) {
-          ss[s] = zero;
-          sn[s] = zero;
-          if (s < nseg && P.seg_kind[s] == kSOC) {
-            const int end = P.seg_start[s] + P.seg_len[s];
-            for (int i = P.seg_start[s] + 1 + tid; i < end; i += nthreads) {
-              const T a = __ldcg(P.ss + i), b = __ldcg(P.nax + i);
-              ss[s] += a * a;
-              sn[s] += b * b;
-            }
-          }
+      // C2: the segments' primal distances of s_s and -A w_x (their SOC
+      // tail norms need every row of the products).
+      T rpri2 = T(0), axd2 = T(0);
+      if (nseg > 0) {
+        T v[2] = {T(0), T(0)};
+        for (int s = 0; s < nseg; ++s) {
+          if (P.seg_owner[s] != (int)blockIdx.x || P.seg_kind[s] != kSOC) continue;
+          soc_dist2<T>(P.seg_start[s], P.seg_len[s], [&](int i, int q) {
+            return __ldcg((q == 0 ? P.ss : P.nax) + i);
+          }, smem, v[0], v[1]);
         }
-        block_partials<T, kMaxSeg>(ss, P.partials, S_SEG_SS, smem);
-        block_partials<T, kMaxSeg>(sn, P.partials, S_SEG_NAX, smem);
-      }
-      grid.sync();
-      grid_partials(P.partials, S_SEG_SS, 2 * kMaxSeg, red);
-
-      // C4: the segment rows of the primal distances of s_s and -A w_x.
-      {
-        T v[2] = {zero, zero};
-        for (int i = tid; i < m; i += nthreads) {
-          const int code = P.code[i];
-          if (code < kSegRow) continue;
-          const int s = code - kSegRow;
-          if (P.seg_kind[s] != kSOC) continue;
+        exp_tasks(P, 2, [&](int s, int q) {
+          const T* src = q == 0 ? P.ss : P.nax;
           const int h = P.seg_start[s];
-          const T a = __ldcg(P.ss + i), b = __ldcg(P.nax + i);
-          const T da = a - soc_row(i == h, a, __ldcg(P.ss + h), m_sqrt(red[S_SEG_SS + s]));
-          const T db = b - soc_row(i == h, b, __ldcg(P.nax + h), m_sqrt(red[S_SEG_NAX + s]));
-          v[0] += da * da;
-          v[1] += db * db;
-        }
-        if (exp_thread) {
-          const int h = P.seg_start[my_seg], kind = P.seg_kind[my_seg];
-          const T* src[2] = {P.ss, P.nax};
-          for (int q = 0; q < 2; ++q) {
-            const T a = __ldcg(src[q] + h), b = __ldcg(src[q] + h + 1), c = __ldcg(src[q] + h + 2);
-            const V3<T> z = exp_segment(kind, a, b, c, P.grid);
-            v[q] += ((a - z.x) * (a - z.x) + (b - z.y) * (b - z.y)) + (c - z.z) * (c - z.z);
-          }
-        }
-        block_partials<T, 2>(v, P.partials, S_RPRI2, smem);
+          const T a = __ldcg(src + h), b = __ldcg(src + h + 1), c = __ldcg(src + h + 2);
+          const V3<T> z = exp_segment(P.seg_kind[s], a, b, c, P.grid, lane);
+          const T d = (sq(a - z.x) + sq(b - z.y)) + sq(c - z.z);
+          if (lane == 0 && q == 0) v[0] += d;
+          if (lane == 0 && q == 1) v[1] += d;
+        });
+        block_partials<T, 2>(v, partials, S_RPRI2, smem);
+        grid_sync(grid);
+        grid_partials(partials, S_RPRI2, 2, red);
+        rpri2 = red[S_RPRI2];
+        axd2 = red[S_AXD2];
       }
-      grid.sync();
-      grid_partials(P.partials, S_RPRI2, 2, red);
 
       // --- Scalars: identical in every block. --------------------------
       // tau > 0: the primal, dual and gap test.
-      const T rp = m_sqrt(red[S_RPRI] + red[S_RPRI2]);
+      const T rp = m_sqrt(red[S_RPRI] + rpri2);
       const T rd = m_sqrt(red[S_RDUA]);
-      const T r_dua_cone = m_sqrt(red[S_RDC] + red[S_RDC2]);
+      const T r_dua_cone = m_sqrt(red[S_RDC]);
       const T eps_pri = sqm * abs_tol + rel_tol * tmax(b_norm, m_sqrt(red[S_SS2]));
       const T eps_dua = sqn * abs_tol + rel_tol * tmax(m_sqrt(red[S_ATY2]), c_norm);
-      const T eps_cone = sqm * abs_tol + rel_tol * tmax(one, m_sqrt(red[S_YS2]));
+      const T eps_cone = sqm * abs_tol + rel_tol * tmax(T(1), m_sqrt(red[S_YS2]));
       const T cx = red[S_CXS], by = red[S_BYS];
       const T g = m_fabs(cx + by);
-      const T eps_gap = abs_tol + rel_tol * tmax(tmax(one, g), tmax(m_fabs(cx), m_fabs(by)));
+      const T eps_gap = abs_tol + rel_tol * tmax(tmax(T(1), g), tmax(m_fabs(cx), m_fabs(by)));
       const T curr = rp + rd + r_dua_cone + g;
       const bool converged = rp <= eps_pri && rd <= eps_dua && r_dua_cone <= eps_cone &&
                              g <= eps_gap;
@@ -589,9 +624,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_hsde_kernel(Params<T> P) {
       // tau ~ 0: the certificates, by dominance, confirmed on a second firing.
       const T kappa = -cwx - bwy;
       const bool firm = kappa > T(K_KAPPA_TOL) && fp <= fp_tol;
-      const T ax_dist = m_sqrt(red[S_AXD] + red[S_AXD2]);
+      const T ax_dist = m_sqrt(red[S_AXD] + axd2);
       const T aty_h = m_sqrt(red[S_ATYH2]);
-      const T y_cone_h = m_sqrt(red[S_YCH] + red[S_YCH2]);
+      const T y_cone_h = m_sqrt(red[S_YCH]);
       const T b_neg = -bwy, c_neg = -cwx;
       const bool infeas_sup = firm && b_neg > cert_tol && aty_h <= cert_tol * b_neg &&
                               y_cone_h <= cert_tol * b_neg;
@@ -643,18 +678,27 @@ __global__ void __launch_bounds__(kThreads, 1) fused_hsde_kernel(Params<T> P) {
   }
 }
 
+// The work buffer: the vectors r, px | py, q, q2, ss, nax, the row sums
+// between column tiles (2 max(m, n)) and the partial sums (kSlots x grid).
+long long work_elems(int m, int n, int grid) {
+  const long long mx = m > n ? m : n;
+  return 2LL * n + 5LL * m + 2 * mx + (long long)kSlots * grid;
+}
+
 template <typename T>
-int grid_size(int device, int* grid) {
+cudaError_t set_smem(int bytes) {
+  return cudaFuncSetAttribute(fused_hsde_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <typename T>
+int blocks_per_sm(int device, int smem_bytes, int* per_sm) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  err = set_smem<T>(smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused_hsde_kernel<T>, kThreads, 0);
-  if (err != cudaSuccess) return (int)err;
-  // One block per SM; zero means the block does not fit an SM at all.
-  *grid = per_sm >= 1 ? sms : 0;
-  return 0;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_hsde_kernel<T>,
+                                                            kThreads, smem_bytes);
 }
 
 template <typename T>
@@ -662,10 +706,17 @@ int launch(int device, const void* A, const void* At, const void* Kinv, const vo
            const void* c, const void* tx, const void* ty, const int* code,
            const void* egrid, const void* scal, void* ux, void* uy, void* wx, void* wy,
            void* stats, void* work, int m, int n, int nseg, const int* segs,
-           double abs_tol, double rel_tol, int max_iter, int grid, void* stream) {
+           double abs_tol, double rel_tol, int max_iter, int grid, int smem_bytes,
+           void* stream) {
+  if (nseg < 0 || nseg > kMaxSeg || grid < 1 || m < 1 || n < 1 ||
+      smem_bytes < 2 * 16 || smem_bytes % (2 * 16))
+    return (int)cudaErrorInvalidValue;
+  for (int s = 0; s < nseg; ++s)
+    if (segs[4 * s + 3] < 0 || segs[4 * s + 3] >= grid) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (nseg < 0 || nseg > kMaxSeg) return (int)cudaErrorInvalidValue;
+  err = set_smem<T>(smem_bytes);
+  if (err != cudaSuccess) return (int)err;
   T* wk = static_cast<T*>(work);
   Params<T> P;
   P.A = static_cast<const T*>(A);
@@ -685,29 +736,29 @@ int launch(int device, const void* A, const void* At, const void* Kinv, const vo
   P.stats = static_cast<T*>(stats);
   P.r = wk;
   P.px = wk + n;
-  P.xs = wk + 2 * n;
-  P.py = wk + 3 * n;
+  P.py = wk + 2 * n;
   P.q = P.py + m;
   P.q2 = P.q + m;
-  P.vy = P.q2 + m;
-  P.ys = P.vy + m;
-  P.ss = P.ys + m;
+  P.ss = P.q2 + m;
   P.nax = P.ss + m;
-  P.partials = P.nax + m;
+  P.part = P.nax + m;
+  P.partials = P.part + 2 * (m > n ? m : n);
   P.m = m;
   P.n = n;
   P.nseg = nseg;
+  P.smem_bytes = smem_bytes;
   for (int s = 0; s < kMaxSeg; ++s) {
-    P.seg_kind[s] = s < nseg ? segs[3 * s] : 0;
-    P.seg_start[s] = s < nseg ? segs[3 * s + 1] : 0;
-    P.seg_len[s] = s < nseg ? segs[3 * s + 2] : 0;
+    P.seg_kind[s] = s < nseg ? segs[4 * s] : 0;
+    P.seg_start[s] = s < nseg ? segs[4 * s + 1] : 0;
+    P.seg_len[s] = s < nseg ? segs[4 * s + 2] : 0;
+    P.seg_owner[s] = s < nseg ? segs[4 * s + 3] : 0;
   }
   P.abs_tol = T(abs_tol);
   P.rel_tol = T(rel_tol);
   P.max_iter = max_iter;
   void* args[] = {&P};
   err = cudaLaunchCooperativeKernel((const void*)fused_hsde_kernel<T>, dim3(grid),
-                                    dim3(kThreads), args, 0,
+                                    dim3(kThreads), args, smem_bytes,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -717,34 +768,37 @@ int launch(int device, const void* A, const void* At, const void* Kinv, const vo
 
 extern "C" {
 
-// Elements of the work buffer the launch needs for a given grid.
+// Elements (of the working type) of the work buffer the launch needs for a
+// given grid.
 long long pogs_fused_hsde_work_elems(int m, int n, int grid) {
-  return 3LL * n + 7LL * m + (long long)kSlots * grid;
+  return work_elems(m, n, grid);
 }
 
-// The cooperative grid size (blocks) for the kernel on this device; 0 if the
-// kernel cannot be made co-resident.  Returns a cudaError_t code.
-int pogs_fused_hsde_grid(int is_double, int device, int* grid) {
-  return is_double ? grid_size<double>(device, grid) : grid_size<float>(device, grid);
+// The blocks of the kernel an SM holds at once with `smem_bytes` of dynamic
+// shared memory (0: it does not fit).  Returns a cudaError_t code.
+int pogs_fused_hsde_blocks_per_sm(int is_double, int device, int smem_bytes, int* per_sm) {
+  return is_double ? blocks_per_sm<double>(device, smem_bytes, per_sm)
+                   : blocks_per_sm<float>(device, smem_bytes, per_sm);
 }
 
-// Launch the whole solve on `stream`; does not synchronise.  segs holds
-// (kind, start, length) of each of the nseg SOC / exponential segments, in
+// Launch the whole solve on `stream` with `grid` blocks and `smem_bytes` of
+// dynamic shared memory; does not synchronise.  segs holds (kind, start,
+// length, owner block) of each of the nseg SOC / exponential segments, in
 // host memory.  Returns the cudaError_t of the launch (0 on success).
 int pogs_fused_hsde(int is_double, int device, const void* A, const void* At,
                     const void* Kinv, const void* b, const void* c, const void* tx,
                     const void* ty, const int* code, const void* egrid,
                     const void* scal, void* ux, void* uy, void* wx, void* wy,
                     void* stats, void* work, int m, int n, int nseg, const int* segs,
-                    double abs_tol, double rel_tol, int max_iter, int grid,
+                    double abs_tol, double rel_tol, int max_iter, int grid, int smem_bytes,
                     void* stream) {
   if (is_double)
     return launch<double>(device, A, At, Kinv, b, c, tx, ty, code, egrid, scal, ux, uy,
                           wx, wy, stats, work, m, n, nseg, segs, abs_tol, rel_tol,
-                          max_iter, grid, stream);
+                          max_iter, grid, smem_bytes, stream);
   return launch<float>(device, A, At, Kinv, b, c, tx, ty, code, egrid, scal, ux, uy, wx,
                        wy, stats, work, m, n, nseg, segs, abs_tol, rel_tol, max_iter,
-                       grid, stream);
+                       grid, smem_bytes, stream);
 }
 
 const char* pogs_fused_hsde_error_string(int code) {

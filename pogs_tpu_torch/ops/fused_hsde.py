@@ -14,7 +14,10 @@ the JAX function (without the TPU's 128-lane padding):
     which is the eager ``hsde_solve`` with the SMW solve through the given
     Kinv (Woodbury when A is wide), no polish and no Anderson.
 
-``fused_hsde_solve.launches`` counts kernel launches.
+``hsde_plan`` gives the launch plan the kernel takes: blocks (sized to the
+problem: one for a small problem, about 8 rows of the longest product per
+block beyond), threads, dynamic shared memory and each segment's owner
+block.  ``fused_hsde_solve.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -32,7 +35,10 @@ from pogs_tpu_torch.solver.hsde import hsde_solve
 
 _DTYPES = (torch.float32, torch.float64)
 MAX_SEGMENTS = 16
-_GRIDS: dict = {}
+THREADS = 512                # threads per block (csrc/coop.cuh kThreads)
+SMEM_VECTORS = 196_608       # dynamic shared memory that stages vectors (of 232,448)
+_PER_SM: dict = {}
+_EXP_GRIDS: dict = {}
 # Row codes of the kernel: the separable kinds; segment rows are 16 + index.
 _ROW_CODE = {Cone.ZERO: 1, Cone.NON_NEG: 2, Cone.NON_POS: 3}
 _SEG_ROW = 16
@@ -63,6 +69,69 @@ def fused_hsde_eligible(dtype, Ky: ConeSet, has_P: bool, use_anderson: bool) -> 
             and all(kind != Cone.SDP for kind, _, _ in segs))
 
 
+# Matrix elements (2mn + k², k = min(m, n)) up to which the kernel runs as
+# one block, and the rows of the longest product a block takes beyond it.
+# From the route table of chip_smoke.py's phase 10 (an NVIDIA H100): one
+# block is fastest up to 64x48 (8,448 elements) and 19 to 20% slower than
+# the best grid at 90x60 (14,400); beyond, the fastest grid gives each
+# block about 8 rows (8 at 90x60, 16 at 128x96, 33 at 200x120, 33 to 66 at
+# 300x200 and 60x300, 66 to 132 at 804x200, 132 at 1100x300).
+ONE_BLOCK_ELEMS = 11_000
+ROWS_PER_BLOCK = 8
+
+
+def blocks_for(m: int, n: int, sms: int) -> int:
+    """Blocks the kernel runs on for an (m, n) problem, before the
+    occupancy limit: one (its barriers are __syncthreads) up to
+    ONE_BLOCK_ELEMS matrix elements, else the fewest of sms, sms/2, sms/4,
+    ... (halved, rounded down) that leave each block at most ROWS_PER_BLOCK
+    rows of the longest product (max(m, n) rows)."""
+    k = min(m, n)
+    if 2 * m * n + k * k <= ONE_BLOCK_ELEMS:
+        return 1
+    blocks = sms
+    while blocks // 2 >= 1 and (blocks // 2) * ROWS_PER_BLOCK >= max(m, n):
+        blocks //= 2
+    return blocks
+
+
+def hsde_plan(m: int, n: int, itemsize: int, segs, sms: int, limit: int) -> dict:
+    """The kernel's launch plan for an (m, n) problem with ``segs`` (kind,
+    start, length) segments on a card of ``sms`` SMs, where at most
+    ``limit`` blocks are co-resident (the occupancy limit):
+
+      * ``blocks``: ``blocks_for``, at most ``limit``;
+      * ``threads``: per block;
+      * ``smem``: dynamic shared memory in bytes, the staged vectors of a
+        paired product: two of the longer side, in column tiles when they
+        exceed ``SMEM_VECTORS``;
+      * ``owners``: each segment's owner block, segment s on block s % blocks;
+      * ``barriers_per_iter`` (4 tall, 6 wide), ``barriers_per_check`` (2, or
+        1 with no segment), and the partial-sum slots reduced across blocks
+        per iteration and per check (``slots_per_iter``,
+        ``slots_per_check``).
+
+    It depends on nothing else, so one problem always runs the same plan
+    and sums in the same order."""
+    if itemsize not in (4, 8):
+        raise ValueError(f"itemsize {itemsize}: the kernel takes float32 or float64")
+    per = 16 // itemsize                 # columns of one 16-byte load
+    cols = -(-max(m, n) // per) * per
+    cap = SMEM_VECTORS // itemsize // (2 * per) * (2 * per)
+    nseg = len(segs)
+    blocks = max(1, min(blocks_for(m, n, sms), sms, limit))
+    return {
+        "blocks": blocks,
+        "threads": THREADS,
+        "smem": min(2 * cols, cap) * itemsize,
+        "owners": [s % blocks for s in range(nseg)],
+        "barriers_per_iter": 4 if m >= n else 6,
+        "barriers_per_check": 2 if nseg else 1,
+        "slots_per_iter": 2 + 5,
+        "slots_per_check": 11 + (2 if nseg else 0),
+    }
+
+
 def fused_hsde_solve_ref(A, b, c, Ky: ConeSet, Kinv, t_x, t_y, s_den,
                          abs_tol: float, rel_tol: float, max_iter: int, u0=None):
     """The kernel's plain version: the eager loop, SMW through Kinv."""
@@ -85,10 +154,10 @@ def _lib():
     if not getattr(lib, "_pogs_typed", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.pogs_fused_hsde.argtypes = ([ci, ci] + [vp] * 16 + [ci, ci, ci, vp]
-                                        + [cd, cd, ci, ci, vp])
+                                        + [cd, cd, ci, ci, ci, vp])
         lib.pogs_fused_hsde.restype = ci
-        lib.pogs_fused_hsde_grid.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        lib.pogs_fused_hsde_grid.restype = ci
+        lib.pogs_fused_hsde_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.pogs_fused_hsde_blocks_per_sm.restype = ci
         lib.pogs_fused_hsde_work_elems.argtypes = [ci, ci, ci]
         lib.pogs_fused_hsde_work_elems.restype = ctypes.c_longlong
         lib.pogs_fused_hsde_error_string.argtypes = [ci]
@@ -103,16 +172,50 @@ def _check(lib, rc: int, what: str):
         raise RuntimeError(f"fused HSDE kernel: {what} failed: {msg} ({rc})")
 
 
-def _grid(lib, device: torch.device, is_double: bool) -> int:
-    key = (device.index, is_double)
-    if key not in _GRIDS:
+def _per_sm(lib, device: torch.device, is_double: bool, smem: int) -> int:
+    """Blocks an SM holds at once with ``smem`` bytes of dynamic shared memory."""
+    key = (device.index, is_double, smem)
+    if key not in _PER_SM:
         g = ctypes.c_int(0)
-        _check(lib, lib.pogs_fused_hsde_grid(int(is_double), device.index, ctypes.byref(g)),
-               "occupancy query")
+        _check(lib, lib.pogs_fused_hsde_blocks_per_sm(int(is_double), device.index, smem,
+                                                      ctypes.byref(g)), "occupancy query")
         if g.value < 1:
             raise RuntimeError("fused HSDE kernel: a block does not fit on an SM")
-        _GRIDS[key] = g.value
-    return _GRIDS[key]
+        _PER_SM[key] = g.value
+    return _PER_SM[key]
+
+
+def launch_plan(lib, device: torch.device, dtype, m: int, n: int, segs) -> dict:
+    """``hsde_plan`` for this card: its SM count and the occupancy limit at
+    the plan's shared memory."""
+    itemsize = 8 if dtype == torch.float64 else 4
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    smem = hsde_plan(m, n, itemsize, segs, sms, 1)["smem"]
+    limit = sms * _per_sm(lib, device, dtype == torch.float64, smem)
+    return hsde_plan(m, n, itemsize, segs, sms, limit)
+
+
+def _row_codes(Ky: ConeSet, segs, dev: torch.device) -> torch.Tensor:
+    """The kernel's row codes of Ky on dev, made once per cone set and
+    device (a solver's repeated solves copy nothing to the card for them)."""
+    cache = Ky.__dict__.setdefault("_fused_hsde_codes", {})
+    if dev not in cache:
+        code = np.zeros(Ky.dim, np.int32)
+        for con in Ky.constraints:
+            if con.cone in _ROW_CODE:
+                code[list(con.indices)] = _ROW_CODE[con.cone]
+        for s, (_, start, length) in enumerate(segs):
+            code[start:start + length] = _SEG_ROW + s
+        cache[dev] = torch.as_tensor(code, device=dev)
+    return cache[dev]
+
+
+def _exp_grid(dtype, dev: torch.device) -> torch.Tensor:
+    """The exponential-cone scan points on dev, made once per dtype and device."""
+    key = (dtype, dev)
+    if key not in _EXP_GRIDS:
+        _EXP_GRIDS[key] = exp_grid(dtype).to(dev).contiguous()
+    return _EXP_GRIDS[key]
 
 
 def _launch(A, b, c, Ky, Kinv, t_x, t_y, s_den, abs_tol, rel_tol, max_iter, u0, At):
@@ -145,17 +248,7 @@ def _launch(A, b, c, Ky, Kinv, t_x, t_y, s_den, abs_tol, rel_tol, max_iter, u0, 
         return t.contiguous()
 
     b, c, t_x, t_y = vec(b, m), vec(c, n), vec(t_x, n), vec(t_y, m)
-    code = np.zeros(m, np.int32)
-    for con in Ky.constraints:
-        if con.cone in _ROW_CODE:
-            code[list(con.indices)] = _ROW_CODE[con.cone]
-    for s, (_, start, length) in enumerate(segs):
-        code[start:start + length] = _SEG_ROW + s
-    code_t = torch.as_tensor(code, device=dev)
-    seg_table = np.zeros(3 * MAX_SEGMENTS, np.int32)
-    for s, (kind, start, length) in enumerate(segs):
-        seg_table[3 * s:3 * s + 3] = (int(kind), start, length)
-    grid_pts = exp_grid(dt).to(dev).contiguous()
+    code_t, grid_pts = _row_codes(Ky, segs, dev), _exp_grid(dt, dev)
     if u0 is None:
         u = torch.cat([torch.zeros(n + m, dtype=dt, device=dev),
                        torch.ones(1, dtype=dt, device=dev)])
@@ -167,11 +260,15 @@ def _launch(A, b, c, Ky, Kinv, t_x, t_y, s_den, abs_tol, rel_tol, max_iter, u0, 
 
     lib = _lib()
     is_double = dt == torch.float64
-    grid = _grid(lib, dev, is_double)
+    plan = launch_plan(lib, dev, dt, m, n, segs)
+    seg_table = np.zeros(4 * MAX_SEGMENTS, np.int32)
+    for s, ((kind, start, length), owner) in enumerate(zip(segs, plan["owners"])):
+        seg_table[4 * s:4 * s + 4] = (int(kind), start, length, owner)
     wx = torch.empty(n, dtype=dt, device=dev)
     wy = torch.empty(m, dtype=dt, device=dev)
     stats = torch.empty(8, dtype=dt, device=dev)
-    work = torch.empty(lib.pogs_fused_hsde_work_elems(m, n, grid), dtype=dt, device=dev)
+    work = torch.empty(lib.pogs_fused_hsde_work_elems(m, n, plan["blocks"]), dtype=dt,
+                       device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.pogs_fused_hsde(
         int(is_double), dev.index,
@@ -180,7 +277,7 @@ def _launch(A, b, c, Ky, Kinv, t_x, t_y, s_den, abs_tol, rel_tol, max_iter, u0, 
         scal.data_ptr(), ux.data_ptr(), uy.data_ptr(), wx.data_ptr(), wy.data_ptr(),
         stats.data_ptr(), work.data_ptr(), m, n, len(segs),
         seg_table.ctypes.data_as(ctypes.c_void_p), float(abs_tol), float(rel_tol),
-        int(max_iter), grid, stream,
+        int(max_iter), plan["blocks"], plan["smem"], stream,
     )
     _check(lib, rc, "launch")
     fused_hsde_solve.launches += 1

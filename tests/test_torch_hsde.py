@@ -333,3 +333,169 @@ def test_cuda_source_codes_match_the_package():
 
         val = float(re.search(rf"\b{name} = ([0-9.e-]+)", src).group(1))
         assert val == getattr(ph, name), name
+
+
+# --- The cone kernel's launch plan (ops/fused_hsde.py::hsde_plan) ----------
+
+_SIZES = [(1, 1), (3, 2), (3, 8), (40, 12), (804, 200), (1100, 300), (8004, 2000),
+          (2000, 8004), (20000, 5000)]
+
+
+def _plan_segs(m):
+    """An SOC and up to five exponential cones that fit m rows."""
+    segs = [(P.Cone.SOC, 0, min(m, 4))]
+    for i in range(min(5, (m - 4) // 3) if m > 4 else 0):
+        segs.append((P.Cone.EXP_PRIMAL if i % 2 else P.Cone.EXP_DUAL, 4 + 3 * i, 3))
+    return segs
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", _SIZES)
+def test_plan_blocks_within_the_limit_and_owners(m, n, itemsize):
+    """Blocks within the occupancy limit passed in and the SM count; every
+    segment has exactly one owner, a block of the grid."""
+    segs = _plan_segs(m)
+    for sms, limit in ((132, 132), (132, 66), (132, 7), (132, 1), (8, 16), (132, 264)):
+        plan = pf.hsde_plan(m, n, itemsize, segs, sms, limit)
+        assert 1 <= plan["blocks"] <= min(sms, limit)
+        assert plan["threads"] == pf.THREADS
+        owners = plan["owners"]
+        assert len(owners) == len(segs)
+        assert all(isinstance(o, int) and 0 <= o < plan["blocks"] for o in owners)
+
+
+@pytest.mark.parametrize("m,n", _SIZES)
+def test_plan_depends_only_on_the_problem(m, n):
+    """One problem, one plan: the same dict on every call, whatever was
+    planned in between."""
+    segs = _plan_segs(m)
+    first = pf.hsde_plan(m, n, 4, segs, 132, 132)
+    pf.hsde_plan(n, m, 8, segs[:1], 66, 3)
+    assert pf.hsde_plan(m, n, 4, list(segs), 132, 132) == first
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+@pytest.mark.parametrize("m,n", [(8004, 2000), (20000, 5000), (2000, 8004), (3, 2)])
+def test_plan_shared_memory(m, n, itemsize):
+    """At most the 232,448 bytes a block may use, whole 32-byte units (two
+    16-byte vectors), and both vectors of a paired product of the longer
+    side, in the working type, in one tile while they fit SMEM_VECTORS."""
+    smem = pf.hsde_plan(m, n, itemsize, [], 132, 132)["smem"]
+    assert 32 <= smem <= pf.SMEM_VECTORS <= 232_448
+    assert smem % 32 == 0
+    if 2 * max(m, n) * itemsize <= pf.SMEM_VECTORS:
+        assert smem >= 2 * max(m, n) * itemsize
+    else:
+        assert smem == pf.SMEM_VECTORS
+
+
+def _kernel_slots():
+    """The partial-sum slots of csrc/fused_hsde.cu's Slot enum, in order."""
+    src = open(os.path.join(ROOT, "pogs_tpu_torch", "csrc", "fused_hsde.cu")).read()
+    body = re.search(r"enum Slot \{(.*?)\};", src, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    return [t.split("=")[0].strip() for t in body.split(",") if t.strip()]
+
+
+@pytest.mark.parametrize("shape,nseg", [((40, 12), 0), ((40, 12), 3), ((3, 8), 0),
+                                        ((3, 8), 2)])
+def test_plan_barriers_and_live_slots(shape, nseg):
+    """4 barriers per iteration tall, 6 wide; 2 more per check, 1 with no
+    segment.  The slots reduced across blocks are those of the kernel's
+    Slot enum: 7 per iteration (2 after the solve, 5 after the projection)
+    and 13 per check (11 and 2), 11 with no segment; none per segment."""
+    m, n = shape
+    segs = [(P.Cone.SOC, 3 * i, 3) for i in range(nseg)]
+    plan = pf.hsde_plan(m, n, 8, segs, 132, 132)
+    assert plan["barriers_per_iter"] == (4 if m >= n else 6)
+    assert plan["barriers_per_check"] == (2 if nseg else 1)
+    slots = _kernel_slots()
+    assert slots[-1] == "kSlots"
+    per_iter = slots.index("S_CXS")
+    per_check = slots.index("kSlots") - per_iter
+    assert plan["slots_per_iter"] == per_iter == 7
+    assert plan["slots_per_check"] == (per_check if nseg else slots.index("S_RPRI2") - per_iter)
+    assert per_check == 13
+
+
+
+# The K3 route table: µs per iteration on 1, 2, 4, 8, 16, 33, 66 and 132
+# blocks, up to 1000 iterations at tolerance 0, divided by the iterations
+# run (chip_smoke.py::hsde_route_table on an NVIDIA H100 80GB HBM3, 700 W).
+_ROUTE_GRIDS = (1, 2, 4, 8, 16, 33, 66, 132)
+_ROUTE_TABLE = [
+    ('lp_3x2', 3, 2, 4, (5.7, 10.5, 10.3, 10.3, 10.3, 10.7, 10.4, 11.2)),
+    ('lp_3x2', 3, 2, 8, (7.1, 11.8, 11.6, 11.5, 11.5, 11.7, 12.2, 12.5)),
+    ('socp_10x9', 10, 9, 4, (7.9, 13.2, 12.8, 12.9, 13.0, 13.4, 13.1, 13.8)),
+    ('socp_10x9', 10, 9, 8, (9.8, 14.9, 14.6, 14.4, 14.4, 14.9, 15.2, 15.5)),
+    ('wide_eq_lp_3x8', 3, 8, 4, (9.6, 16.2, 16.3, 16.1, 16.1, 16.6, 16.4, 17.5)),
+    ('wide_eq_lp_3x8', 3, 8, 8, (13.1, 20.3, 19.9, 19.9, 19.6, 20.3, 20.4, 20.9)),
+    ('infeasible_2x1', 2, 1, 4, (6.8, 11.4, 11.6, 11.7, 11.0, 11.7, 11.6, 12.4)),
+    ('infeasible_2x1', 2, 1, 8, (6.9, 11.5, 11.3, 11.2, 11.3, 11.7, 12.1, 12.2)),
+    ('unbounded_1x1', 1, 1, 4, (9.4, 14.0, 13.9, 13.9, 13.8, 13.9, 13.9, 14.8)),
+    ('unbounded_1x1', 1, 1, 8, (13.5, 18.0, 18.2, 17.9, 17.9, 18.2, 18.6, 19.3)),
+    ('exp_3x1', 3, 1, 4, (14.0, 19.0, 19.0, 18.9, 19.1, 19.2, 19.2, 20.1)),
+    ('exp_3x1', 3, 1, 8, (24.9, 29.8, 30.0, 29.8, 29.7, 29.9, 30.5, 31.0)),
+    ('mixed_soc_exp_nonneg_10x4', 10, 4, 4, (16.3, 19.2, 18.8, 18.7, 18.6, 18.9, 19.1, 20.0)),
+    ('mixed_soc_exp_nonneg_10x4', 10, 4, 8, (27.9, 30.0, 29.6, 29.8, 29.7, 30.0, 30.4, 30.5)),
+    ('multi_exp_soc_27x6', 27, 6, 4, (19.8, 23.0, 20.7, 20.5, 20.5, 20.8, 20.7, 21.7)),
+    ('multi_exp_soc_27x6', 27, 6, 8, (32.0, 34.6, 31.7, 31.3, 31.4, 31.7, 32.0, 32.1)),
+    ('wide_eq_lp_60x300', 60, 300, 4, (36.6, 34.0, 24.4, 21.2, 19.7, 18.3, 18.8, 18.8)),
+    ('wide_eq_lp_60x300', 60, 300, 8, (54.8, 42.9, 31.1, 27.4, 26.0, 24.7, 24.8, 25.1)),
+    ('lp_ineq_1100x300', 1100, 300, 4, (112.0, 64.1, 37.5, 25.2, 19.7, 16.2, 15.2, 14.8)),
+    ('lp_ineq_1100x300', 1100, 300, 8, (193.8, 109.2, 61.6, 39.0, 28.8, 22.2, 20.2, 19.1)),
+    ('socp_ball_804x200', 804, 200, 4, (79.6, 48.1, 30.0, 21.1, 17.0, 15.8, 14.7, 15.3)),
+    ('socp_ball_804x200', 804, 200, 8, (125.1, 72.9, 43.3, 29.0, 22.0, 19.4, 19.0, 18.3)),
+    ('exp_primal_fixture', 5, 3, 4, (14.0, 18.9, 19.1, 18.8, 19.0, 19.4, 19.2, 20.7)),
+    ('exp_primal_fixture', 5, 3, 8, (25.8, 30.9, 30.7, 30.7, 30.5, 31.0, 31.4, 31.6)),
+    ('exp_dual_fixture', 5, 3, 4, (12.3, 17.2, 17.4, 17.1, 17.2, 17.6, 17.1, 18.3)),
+    ('exp_dual_fixture', 5, 3, 8, (21.2, 26.1, 26.1, 26.1, 26.4, 26.3, 26.3, 26.8)),
+    ('mixed_fixture', 10, 4, 4, (7.7, 12.9, 12.6, 12.3, 13.1, 13.0, 12.8, 14.0)),
+    ('mixed_fixture', 10, 4, 8, (9.6, 14.4, 14.5, 14.4, 14.1, 14.4, 15.2, 15.4)),
+    ('random_lp_64x48', 64, 48, 4, (10.6, 13.4, 11.1, 10.9, 11.8, 12.0, 11.4, 11.7)),
+    ('random_lp_64x48', 64, 48, 8, (12.1, 14.6, 12.2, 11.6, 12.1, 12.5, 12.3, 12.7)),
+    ('random_lp_90x60', 90, 60, 4, (14.5, 16.1, 13.2, 12.2, 12.6, 12.4, 12.5, 13.0)),
+    ('random_lp_90x60', 90, 60, 8, (18.5, 19.2, 16.7, 15.4, 15.5, 15.5, 15.9, 16.3)),
+    ('random_lp_128x96', 128, 96, 4, (15.7, 16.4, 13.4, 10.8, 10.7, 11.2, 11.3, 11.7)),
+    ('random_lp_128x96', 128, 96, 8, (21.7, 18.8, 14.8, 12.0, 12.2, 12.3, 12.2, 12.8)),
+    ('random_lp_200x120', 200, 120, 4, (24.3, 21.9, 16.6, 13.5, 12.5, 12.6, 12.9, 13.3)),
+    ('random_lp_200x120', 200, 120, 8, (35.0, 27.8, 21.0, 16.7, 15.7, 15.5, 15.9, 16.4)),
+    ('random_lp_300x200', 300, 200, 4, (38.7, 29.1, 19.8, 15.4, 13.5, 12.9, 12.7, 13.2)),
+    ('random_lp_300x200', 300, 200, 8, (59.7, 41.0, 27.9, 21.0, 17.8, 16.4, 16.3, 16.9)),
+]
+
+
+@pytest.mark.parametrize("case,m,n,itemsize,us", _ROUTE_TABLE,
+                         ids=[f"{r[0]}-f{8 * r[3]}" for r in _ROUTE_TABLE])
+def test_plan_picks_a_fast_grid(case, m, n, itemsize, us):
+    """At every measured size the plan's grid (on 132 SMs) is one of the
+    measured grids and within 5% of the fastest: one block for the small
+    cases, about 8 rows of the longest product per block beyond."""
+    blocks = pf.hsde_plan(m, n, itemsize, [], 132, 132)["blocks"]
+    assert blocks in _ROUTE_GRIDS
+    assert us[_ROUTE_GRIDS.index(blocks)] <= 1.05 * min(us)
+    assert (blocks == 1) == (2 * m * n + min(m, n) ** 2 <= pf.ONE_BLOCK_ELEMS)
+
+
+@pytest.mark.parametrize("sms", [132, 114, 8])
+def test_plan_one_block_rule(sms):
+    """One block up to ONE_BLOCK_ELEMS matrix elements (2mn + k²); beyond,
+    the fewest of sms, sms/2, sms/4, ... blocks that leave each at most
+    ROWS_PER_BLOCK rows of the longest product; within the occupancy
+    limit."""
+    assert pf.blocks_for(64, 48, sms) == 1              # 8,448 elements
+    assert pf.blocks_for(90, 60, 132) == 16             # 14,400: 90 rows
+    assert pf.blocks_for(60, 90, 132) == 16
+    assert pf.blocks_for(804, 200, 132) == 132
+    rows = pf.ROWS_PER_BLOCK
+    for m, n in _SIZES + [(70, 70), (100, 70), (128, 96), (200, 120), (300, 200)]:
+        blocks = pf.blocks_for(m, n, sms)
+        if 2 * m * n + min(m, n) ** 2 <= pf.ONE_BLOCK_ELEMS:
+            assert blocks == 1
+            continue
+        ladder = [sms >> j for j in range(8) if sms >> j >= 1]
+        assert blocks in ladder
+        assert blocks == sms or blocks * rows >= max(m, n)
+        assert blocks // 2 == 0 or (blocks // 2) * rows < max(m, n)
+    assert pf.hsde_plan(100, 70, 8, [], 132, 10)["blocks"] == 10
+    assert pf.hsde_plan(100, 70, 8, [], 8, 132)["blocks"] == 8
