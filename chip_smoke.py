@@ -12,12 +12,19 @@ Phases, each printing one JSON line of its own:
   3. the solve kernel (K1) against its plain version (the eager loop) on the
      card, on the same scaled inputs from the port's init: tall bench lasso
      500x300, wide 300x500, logistic 200x100, nonneg LS with gap_stop,
-     max_iter=5, and the bench lasso in float64;
+     max_iter=5, and the bench lasso in float64, each with its launch plan's
+     blocks and barriers per iteration; then K1's route table (lasso
+     problems from 60x40 to 5000x2500, tall and wide, f32 and f64, on 1 to
+     132 blocks, and the plan's grid without the shared side; logistic
+     2000x1000 with and without it; a fixed count of iterations at
+     tolerance 0, per iteration run);
   4. the main path: pogs_tpu_torch.solve_lasso on the bench problem (f32,
      cuda), which must succeed, pass the lasso KKT check, and launch K1
      exactly once per solve;
   5. a real size: lasso 5000x2500 f32 through GraphFormSolver, timed per
-     solve with CUDA events, for K1 and for the eager loop;
+     solve with CUDA events, for K1 and for the eager loop, with K1's bound
+     and its share of the per-iteration stream of A, Aᵀ and Ginv at 3.35
+     TB/s;
   6. a warm λ-path of 3 solves on one solver, K1 against the eager loop;
   7. both kernels of the batched solve (K2: the streaming cooperative kernel
      and the L2-resident one) against their plain version on the card, lane
@@ -292,8 +299,11 @@ def phase_kernel_vs_plain(torch, P):
         n_bytes, flops = solve_work(m, n, it_k + 1, int(s_k == 0), A.dtype.itemsize,
                                     lane_in=2 * (m + n), lane_out=6 * (m + n))
         bms, bby = bound_ms(n_bytes, flops, dname)
+        plan = k1_plan(torch, args)
         rec = {"phase": "kernel_vs_plain", "case": name, "shape": [m, n],
-               "dtype": dname, "status": [s_k, s_p],
+               "dtype": dname, "blocks": plan["blocks"], "shared_side": plan["shared_side"],
+               "barriers_per_iter": plan["barriers_per_iter"],
+               "barriers_per_check": plan["barriers_per_check"], "status": [s_k, s_p],
                "iters": [it_k, it_p], "optval": [ov_k, ov_p],
                "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
                "ms_per_iter": ms / max(it_k + 1, 1),
@@ -304,7 +314,132 @@ def phase_kernel_vs_plain(torch, P):
             raise AssertionError(f"kernel disagrees with its plain version: {name}")
         if name == "lasso_500x300_f32":
             summary = rec
+    admm_route_table(torch, P)
     return summary
+
+
+@contextlib.contextmanager
+def patched(module, name, value):
+    """module.<name> set to value inside the block."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def k1_plan(torch, args):
+    """The launch plan K1 takes for these inputs on this card."""
+    from pogs_tpu_torch.ops import fused_admm as fa
+
+    A = args[0]
+    return fa.launch_plan(fa._lib(), A.device, A.dtype, A.shape[0], A.shape[1], args[3],
+                          args[5])
+
+
+def forced_k1(blocks=None, shared=None):
+    """K1's plan with its grid or its shared side forced (None: the plan's
+    own)."""
+    from pogs_tpu_torch.ops import fused_admm as fa
+
+    stack = contextlib.ExitStack()
+    if blocks is not None:
+        stack.enter_context(patched(fa, "blocks_for", lambda m, n, sms: blocks))
+    if shared is not None:
+        stack.enter_context(patched(fa, "shared_side_for", lambda iterative: shared))
+    return stack
+
+
+K1_ROUTE_GRIDS = (1, 8, 16, 33, 66, 132)
+K1_ROUTE_SIZES = ((60, 40), (40, 60), (80, 50), (90, 60), (100, 70), (120, 80), (200, 120),
+                  (300, 200), (500, 300), (300, 500), (1000, 600), (2000, 1000), (3000, 1500),
+                  (5000, 2500), (2500, 5000))
+# Logistic problems (m, m/2) whose f side has m iterative proxes, around the
+# shared side's cap on them.
+K1_ROUTE_LOGISTIC = (400, 600, 1000, 2000)
+
+
+def k1_route_inputs(torch, P, m, n, dt, logistic=False):
+    """Scaled inputs of a lasso (or logistic) problem of shape (m, n) at
+    tolerance 0, so that the solve runs max_iter ordinary iterations."""
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((m, n))
+    F, FV = P.Function, P.FunctionVector
+    if logistic:
+        f = FV(F.LOGISTIC, m, a=-np.sign(rng.standard_normal(m)))
+        g = FV(F.ABS, n, c=0.2)
+    else:
+        b = rng.standard_normal(m)
+        f = FV(F.SQUARE, m, b=b)
+        g = FV(F.ABS, n, c=0.1 * float(np.max(np.abs(A.T @ b))))
+    st, f_s, g_s = scaled_inputs(torch, P, A, f, g, dt)
+    iters = 200 if m * n > 1_000_000 else 1000
+    z0 = torch.zeros(m + n, dtype=dt, device="cuda")
+    settings = P.SolverSettings(abs_tol=0.0, rel_tol=0.0, max_iter=iters)
+    return (st["A"], st["factor"]["op"], st["norm_A"], f.h, tuple(f_s.params), g.h,
+            tuple(g_s.params), settings, z0, z0, 1.0), st["At"], iters
+
+
+def admm_route_table(torch, P):
+    """K1's time per iteration by grid (K1_ROUTE_GRIDS), f32 and f64, on
+    lasso problems of K1_ROUTE_SIZES (beyond a million elements of A in f32
+    only): the record admm_plan's rules are set from
+    (tests/test_torch_admm_plan.py).  Each solve runs a fixed count of
+    iterations at tolerance 0 (no exact residuals: ordinary iterations).
+    On the plan's grid it also times the shared side forced on (3 barriers)
+    and off (4), in every cell and on the logistic problems of
+    K1_ROUTE_LOGISTIC in f32."""
+    from pogs_tpu_torch.ops import fused_admm as fa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for (m, n) in K1_ROUTE_SIZES:
+        for dt in (torch.float32, torch.float64):
+            if m * n > 1_000_000 and dt == torch.float64:
+                continue
+            args, At, iters = k1_route_inputs(torch, P, m, n, dt)
+            dname = str(dt).replace("torch.", "")
+            plan = k1_plan(torch, args)
+            cell = {"case": f"lasso_{m}x{n}", "shape": [m, n], "dtype": dname,
+                    "iters": iters, "plan_blocks": plan["blocks"],
+                    "plan_shared_side": plan["shared_side"], "us_per_iter": {}}
+            for g in K1_ROUTE_GRIDS:
+                with forced_k1(blocks=g):
+                    run = lambda: fa.fused_admm_loop(*args, At=At)  # noqa: E731
+                    cell["us_per_iter"][g] = 1e3 * cuda_ms(torch, run, 2) / iters
+            cell.update(shared_side_times(torch, fa, args, At, iters))
+            per = cell["us_per_iter"]
+            cell["fastest"] = min(per, key=per.get)
+            if plan["blocks"] in per:
+                cell["plan_over_fastest"] = per[plan["blocks"]] / per[cell["fastest"]]
+            rows.append(cell)
+            emit({"phase": "admm_route_table", **cell})
+    for m in K1_ROUTE_LOGISTIC:
+        args, At, iters = k1_route_inputs(torch, P, m, m // 2, torch.float32, logistic=True)
+        plan = k1_plan(torch, args)
+        cell = {"case": f"logistic_{m}x{m // 2}", "shape": [m, m // 2], "dtype": "float32",
+                "iters": iters, "plan_blocks": plan["blocks"],
+                "plan_shared_side": plan["shared_side"],
+                **shared_side_times(torch, fa, args, At, iters)}
+        rows.append(cell)
+        emit({"phase": "admm_route_table", **cell})
+    return rows
+
+
+def shared_side_times(torch, fa, args, At, iters):
+    """µs per iteration on the plan's grid with the shared side forced on
+    (3 barriers; where it fits in shared memory) and off (4)."""
+    out = {}
+    for shared in (True, False):
+        with forced_k1(shared=shared):
+            key = "shared_side" if shared else "four_barriers"
+            if k1_plan(torch, args)["shared_side"] != shared:
+                out[key] = None
+                continue
+            run = lambda: fa.fused_admm_loop(*args, At=At)  # noqa: E731
+            out[key] = 1e3 * cuda_ms(torch, run, 2) / iters
+    return out
 
 
 def phase_main_path(torch, P):
@@ -385,6 +520,14 @@ def phase_real_size(torch, P):
         out[label] = {"iterations": iters, "ms_per_solve": ms,
                       "ms_per_solve_all": times,
                       "ms_per_iter": ms / (np.mean(iters) + 1), "kkt": kkt}
+    # K1's bound, and the stream of A, Aᵀ and Ginv that every iteration reads.
+    k = min(m, n)
+    it = float(np.mean(out["kernel"]["iterations"])) + 1
+    n_bytes, flops = solve_work(m, n, it, 1, 4)
+    bms, bby = bound_ms(n_bytes, flops, "float32")
+    stream_us = 4 * (2 * m * n + k * k) / PEAK_BYTES * 1e6
+    out["kernel"].update(bound_ms=bms, bound_by=bby, stream_us_per_iter=stream_us,
+                         stream_share=stream_us / (1e3 * out["kernel"]["ms_per_iter"]))
     emit(out)
     return out
 
@@ -931,17 +1074,11 @@ def multi_exp_problem(P, seed=23):
     return np.vstack(rows), np.concatenate(bs), rng.standard_normal(n), cones
 
 
-@contextlib.contextmanager
 def _patched_hsde(name, value):
     """ops.fused_hsde.<name> set to value inside the block."""
     from pogs_tpu_torch.ops import fused_hsde as fh
 
-    old = getattr(fh, name)
-    setattr(fh, name, value)
-    try:
-        yield
-    finally:
-        setattr(fh, name, old)
+    return patched(fh, name, value)
 
 
 def forced_blocks(blocks):

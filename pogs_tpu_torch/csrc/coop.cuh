@@ -1,9 +1,9 @@
 // Device code shared by the persistent cooperative solve kernels,
 // fused_admm.cu (the graph-form solve), fused_hsde.cu (the cone solve) and
 // fused_admm_sweep.cu (a batch of graph-form solves): the block shape,
-// fixed-order block and grid reductions (per lane for the batch), a warp
-// dot product of a matrix row with a vector written inside the kernel, and
-// the cone kernel's barrier, block sums and streaming products.
+// fixed-order block and grid reductions (per lane for the batch), the
+// barrier between phases, block sums, and 16-byte streaming dot products of
+// matrix rows with vectors staged in shared memory.
 //
 // Determinism across blocks: each block writes its partial sums to a global
 // scratch array; after a grid sync every block reduces all partials in the
@@ -123,32 +123,16 @@ __device__ void lane_grid_partials(const T* partials, int slot0, int ns, T* red)
   __syncthreads();
 }
 
-// Dot product of a read-only matrix row with a vector written in-kernel,
-// by one warp; the result is valid in every lane.
-template <typename T>
-__device__ __forceinline__ T warp_dot(const T* __restrict__ row, const T* vec, int len, int lane) {
-  T a0 = T(0), a1 = T(0), a2 = T(0), a3 = T(0);
-  int j = lane;
-  for (; j + 96 < len; j += 128) {
-    a0 += row[j] * __ldcg(vec + j);
-    a1 += row[j + 32] * __ldcg(vec + j + 32);
-    a2 += row[j + 64] * __ldcg(vec + j + 64);
-    a3 += row[j + 96] * __ldcg(vec + j + 96);
-  }
-  for (; j < len; j += 32) a0 += row[j] * __ldcg(vec + j);
-  return warp_sum((a0 + a1) + (a2 + a3));
-}
-
-// ---------------------------------------------------------------------------
-// The cone kernel's barrier, block sums and streaming products (fused_hsde.cu).
-// ---------------------------------------------------------------------------
-
 // The barrier between two phases: a grid sync, or __syncthreads() when the
 // grid is one block.
 template <typename Grid>
 __device__ __forceinline__ void grid_sync(Grid& grid) {
   if (gridDim.x == 1) __syncthreads(); else grid.sync();
 }
+
+// ---------------------------------------------------------------------------
+// Block sums and streaming products (fused_hsde.cu, fused_admm.cu).
+// ---------------------------------------------------------------------------
 
 // Sum NS per-thread values over the block in one fixed order (each warp's
 // butterfly, then the warps in order); every thread receives the sums.
@@ -190,12 +174,12 @@ template <> struct Vec16<double> {
 
 // Dot products of the columns [0, len) of one read-only row p with NV
 // vectors staged in shared memory (xs[q * ldx + j] is column j of vector q;
-// xs 16-byte aligned, ldx a multiple of 16 bytes), by one warp.  The row
-// goes as a scalar head up to its first 16-byte boundary, then 16-byte
-// loads, kU per lane issued before any is used (kU * 512 bytes in flight
-// per warp), then a scalar tail.  Where the staged columns of a 16-byte
-// load start on 16 bytes they are read 16 bytes at a time too.  The sums,
-// in one fixed order, are valid in every lane.
+// ldx a multiple of 16 bytes), by one warp.  The row goes as a scalar head
+// up to its first 16-byte boundary, then 16-byte loads, kU per lane issued
+// before any is used (kU * 512 bytes in flight per warp), then a scalar
+// tail.  Where the staged columns of a 16-byte load start on 16 bytes (xs
+// may start anywhere) they are read 16 bytes at a time too.  The sums, in
+// one fixed order, are valid in every lane.
 template <typename T, int NV, bool kAligned>
 __device__ __forceinline__ void row_dot_body(const T* __restrict__ p, const T* xs, int ldx,
                                              int head, int len, int lane, T (&acc)[NV]) {
@@ -248,8 +232,10 @@ __device__ __forceinline__ void row_dot(const T* __restrict__ p, const T* xs, in
 #pragma unroll
     for (int q = 0; q < NV; ++q) acc[q] += a * xs[q * ldx + lane];
   }
-  if (head * sizeof(T) % 16 == 0) row_dot_body<T, NV, true>(p, xs, ldx, head, len, lane, acc);
-  else row_dot_body<T, NV, false>(p, xs, ldx, head, len, lane, acc);
+  if ((reinterpret_cast<uintptr_t>(xs + head) & 15u) == 0)
+    row_dot_body<T, NV, true>(p, xs, ldx, head, len, lane, acc);
+  else
+    row_dot_body<T, NV, false>(p, xs, ldx, head, len, lane, acc);
   const int t0 = head + (len - head) / V * V;
   if (lane < len - t0) {
     const T a = __ldg(p + t0 + lane);

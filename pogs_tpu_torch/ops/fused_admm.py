@@ -13,6 +13,10 @@ the JAX function (without the TPU's 128-lane padding):
   * on a CPU tensor it runs the plain version, :func:`fused_admm_loop_ref`,
     which is the eager ``admm_loop`` with the inverse projector.
 
+``admm_plan`` gives the launch plan the kernel takes: blocks (one for a
+small problem, else half or all of the SMs), threads, dynamic shared memory and the
+barriers (3 per iteration where every block computes the first product's
+side itself, else 4; one more on an iteration near tolerance).
 ``fused_admm_loop.launches`` counts kernel launches.
 """
 
@@ -24,19 +28,116 @@ from typing import Optional
 import numpy as np
 import torch
 
-from pogs_tpu_torch.types import FunctionVector, SolverSettings
+from pogs_tpu_torch.types import Function, FunctionVector, SolverSettings
 from pogs_tpu_torch.prox.vector import prox_eval, func_eval
 from pogs_tpu_torch.projector.direct import DirectProjector
 from pogs_tpu_torch.solver.admm import admm_loop
 
 _DTYPES = (torch.float32, torch.float64)
-_GRIDS: dict = {}
+THREADS = 512               # threads per block (csrc/coop.cuh kThreads)
+SMEM_BUDGET = 229_376       # dynamic shared memory a block may take (of 232,448)
+ONE_BLOCK_ELEMS = 11_000    # matrix elements (2mn + k²) run on one block
+HALF_GRID_ELEMS = 32_768    # ... on half the SMs (blocks_for)
+# Functions whose prox iterates (Newton, bisection, Lambert W): logistic,
+# exp, negative entropy.
+ITERATIVE_PROX = (int(Function.EXP), int(Function.LOGISTIC), int(Function.NEGENTR))
+_PER_SM: dict = {}
 
 
 def fused_admm_supported(settings: SolverSettings) -> bool:
     """True if the kernel implements the settings' mode."""
     return not (settings.use_anderson or settings.use_exact_tol
                 or settings.verbose > 1)
+
+
+def shared_side_for(iterative: int) -> bool:
+    """Whether every block computes the first product's side for itself,
+    saving the barrier before the first product, where ``iterative`` of
+    that side's elements have an iterative prox: not where there are more
+    of them than a block has threads, since a second logistic prox per
+    thread costs more than the barrier.  K1's route table (chip_smoke.py's
+    phase 3; an NVIDIA H100 80GB HBM3, 700 W), µs per iteration with the
+    shared side / without: logistic 400x200 18.6 / 20.1, 600x300 22.2 /
+    21.4, 1000x500 23.2 / 21.6, 2000x1000 35.1 / 26.0.  Without an
+    iterative prox the shared side is within 5% of the faster order in
+    every cell, from 60x40 to 5000x2500 (faster up to 3000x1500: 34.7 / 35.9;
+    5000x2500 68.3 / 67.5, 2500x5000 69.1 / 66.7)."""
+    return iterative <= THREADS
+
+
+def blocks_for(m: int, n: int, sms: int) -> int:
+    """Blocks the kernel runs on for an (m, n) problem, before the
+    occupancy limit, by its matrix elements 2mn + k²: one (its barriers are
+    __syncthreads) up to ONE_BLOCK_ELEMS, half the SMs up to
+    HALF_GRID_ELEMS, else every SM.  K1's route table (chip_smoke.py's
+    phase 3; an NVIDIA H100 80GB HBM3, 700 W) has this grid within 5% of
+    the fastest of 1, 8, 16, 33, 66 and 132 blocks in all 26 cells from
+    60x40 to 5000x2500, f32 and f64: one block is fastest or within 3% up to
+    80x50 (10,500 elements) and 14% slower at 90x60 (14,400); in f64, 132
+    blocks are 9% slower than 66 from 90x60 to 120x80 (25,600) and the
+    fastest from 200x120 (62,400).  The cone kernel's rule (about 8 rows
+    per block) is 7% slower at 120x80 f32."""
+    k = min(m, n)
+    elems = 2 * m * n + k * k
+    if elems <= ONE_BLOCK_ELEMS:
+        return 1
+    return max(1, sms // 2) if elems <= HALF_GRID_ELEMS else sms
+
+
+def admm_plan(m: int, n: int, itemsize: int, sms: int, limit: int,
+              iterative: int = 0) -> dict:
+    """The kernel's launch plan for an (m, n) problem on a card of ``sms``
+    SMs, where at most ``limit`` blocks are co-resident (the occupancy
+    limit), and ``iterative`` elements of the first product's side (f's for
+    a tall A, g's for a wide one) have an iterative prox:
+
+      * ``blocks``: ``blocks_for``, at most ``limit``;
+      * ``threads``: per block;
+      * ``shared_side``: every block computes the side the first product
+        reads (y tall, x wide) into its shared memory and keeps that side's
+        z, z̃, prox value and prox parameters there (``shared_side_for``,
+        where it fits), so the first product waits for no barrier;
+      * ``xs``: elements of the vector staging buffer, both vectors of the
+        exact residuals where they fit (else column tiles);
+      * ``smem``: dynamic shared memory in bytes;
+      * ``barriers_per_iter`` (3, or 4 without the shared side) and
+        ``barriers_per_check`` (1: the exact residuals near tolerance), and
+        the partial-sum slots reduced across blocks per iteration and per
+        check (``slots_per_iter``, ``slots_per_check``).
+
+    It depends on nothing else, so one problem always runs the same plan
+    and sums in the same order."""
+    if itemsize not in (4, 8):
+        raise ValueError(f"itemsize {itemsize}: the kernel takes float32 or float64")
+    per = 16 // itemsize                     # elements of one 16-byte load
+
+    def rnd(x):
+        return -(-x // per) * per
+
+    budget = SMEM_BUDGET // itemsize
+    side = max(m, n)                         # the shared side: y tall, x wide
+    blocks = max(1, min(blocks_for(m, n, sms), sms, limit))
+    pair = rnd(m) + rnd(n)
+    state = 9 * rnd(side)
+    shared = shared_side_for(iterative) and state + pair <= budget
+    base = state if shared else 0
+    xs = pair if base + pair <= budget else (budget - base) // per * per
+    return {
+        "blocks": blocks,
+        "threads": THREADS,
+        "shared_side": shared,
+        "xs": xs,
+        "smem": (base + xs) * itemsize,
+        "barriers_per_iter": 3 if shared else 4,
+        "barriers_per_check": 1,
+        "slots_per_iter": 12,
+        "slots_per_check": 2,
+    }
+
+
+def iterative_count(h) -> int:
+    """Elements of a function-code vector whose prox iterates."""
+    return int(np.isin(np.asarray(h), ITERATIVE_PROX).sum())
 
 
 def _fv(h, params) -> FunctionVector:
@@ -74,10 +175,13 @@ def _lib():
     lib = load("fused_admm")
     if not getattr(lib, "_pogs_typed", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.pogs_fused_admm.argtypes = [ci, ci] + [vp] * 14 + [ci, ci, cd, cd, ci, ci, ci, ci, vp]
+        lib.pogs_fused_admm.argtypes = ([ci, ci] + [vp] * 14
+                                        + [ci, ci, cd, cd] + [ci] * 7 + [vp])
         lib.pogs_fused_admm.restype = ci
-        lib.pogs_fused_admm_grid.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        lib.pogs_fused_admm_grid.restype = ci
+        lib.pogs_fused_admm_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.pogs_fused_admm_blocks_per_sm.restype = ci
+        lib.pogs_fused_admm_smem_bytes.argtypes = [ci] * 5
+        lib.pogs_fused_admm_smem_bytes.restype = ctypes.c_longlong
         lib.pogs_fused_admm_work_elems.argtypes = [ci, ci, ci]
         lib.pogs_fused_admm_work_elems.restype = ctypes.c_longlong
         lib.pogs_fused_admm_error_string.argtypes = [ci]
@@ -92,16 +196,51 @@ def _check(lib, rc: int, what: str):
         raise RuntimeError(f"fused ADMM kernel: {what} failed: {msg} ({rc})")
 
 
-def _grid(lib, device: torch.device, is_double: bool) -> int:
-    key = (device.index, is_double)
-    if key not in _GRIDS:
+def _per_sm(lib, device: torch.device, is_double: bool, smem: int) -> int:
+    """Blocks an SM holds at once with ``smem`` bytes of dynamic shared memory."""
+    key = (device.index, is_double, smem)
+    if key not in _PER_SM:
         g = ctypes.c_int(0)
-        _check(lib, lib.pogs_fused_admm_grid(int(is_double), device.index, ctypes.byref(g)),
-               "occupancy query")
+        _check(lib, lib.pogs_fused_admm_blocks_per_sm(int(is_double), device.index, smem,
+                                                      ctypes.byref(g)), "occupancy query")
         if g.value < 1:
             raise RuntimeError("fused ADMM kernel: a block does not fit on an SM")
-        _GRIDS[key] = g.value
-    return _GRIDS[key]
+        _PER_SM[key] = g.value
+    return _PER_SM[key]
+
+
+def launch_plan(lib, device: torch.device, dtype, m: int, n: int, h_f, h_g) -> dict:
+    """``admm_plan`` for this card (its SM count and the occupancy limit at
+    the plan's shared memory) and these function codes."""
+    itemsize = 8 if dtype == torch.float64 else 4
+    is_double = dtype == torch.float64
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    iterative = iterative_count(h_f if m >= n else h_g)
+    plan = admm_plan(m, n, itemsize, sms, sms, iterative)
+    limit = sms * _per_sm(lib, device, is_double, plan["smem"])
+    if limit < plan["blocks"]:
+        plan = admm_plan(m, n, itemsize, sms, limit, iterative)
+        if plan["blocks"] > sms * _per_sm(lib, device, is_double, plan["smem"]):
+            raise RuntimeError("fused ADMM kernel: the plan's blocks are not co-resident")
+    return plan
+
+
+def _codes(h: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The function codes h on dev, copied from pinned host memory without
+    waiting: a copy from pageable memory waits for the stream, which would
+    keep the host from preparing a solve while the last one runs."""
+    t = torch.empty(h.shape, dtype=torch.int32, pin_memory=True)
+    t.numpy()[...] = h
+    return t.to(dev, non_blocking=True)
+
+
+def _scalar(v, dt, dev: torch.device) -> torch.Tensor:
+    """A 0-d tensor on dev: a number is filled in there (no host copy)."""
+    if isinstance(v, torch.Tensor):
+        if v.numel() != 1:
+            raise ValueError(f"a scalar expected, not a tensor of shape {tuple(v.shape)}")
+        return v.to(device=dev, dtype=dt).reshape(())
+    return torch.full((), float(v), dtype=dt, device=dev)
 
 
 def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, settings, z0, zt0,
@@ -137,17 +276,17 @@ def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, settings, z0, zt0,
     if h_f.size and (h_f.min() < 0 or h_f.max() > 15) or h_g.size and (
             h_g.min() < 0 or h_g.max() > 15):
         raise ValueError("h codes must be Function values 0..15")
-    hf = torch.as_tensor(h_f, device=dev)
-    hg = torch.as_tensor(h_g, device=dev)
+    hf, hg = _codes(h_f, dev), _codes(h_g, dev)
     fp = torch.stack([vec(p, m) for p in f_params]).contiguous()
     gp = torch.stack([vec(p, n) for p in g_params]).contiguous()
     z = vec(z0, m + n).clone()
     zt = vec(zt0, m + n).clone()
-    scal = torch.stack([vec(rho0, 1)[0], vec(norm_A, 1)[0]])
+    scal = torch.stack([_scalar(rho0, dt, dev), _scalar(norm_A, dt, dev)])
 
     lib = _lib()
     is_double = dt == torch.float64
-    grid = _grid(lib, dev, is_double)
+    plan = launch_plan(lib, dev, dt, m, n, h_f, h_g)
+    grid = plan["blocks"]
     xy12 = torch.empty(m + n, dtype=dt, device=dev)
     munu = torch.empty(m + n, dtype=dt, device=dev)
     work = torch.empty(lib.pogs_fused_admm_work_elems(m, n, grid), dtype=dt, device=dev)
@@ -160,7 +299,8 @@ def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, settings, z0, zt0,
         munu.data_ptr(), z.data_ptr(), zt.data_ptr(), work.data_ptr(),
         stats.data_ptr(), m, n, float(settings.abs_tol), float(settings.rel_tol),
         int(settings.max_iter), int(bool(settings.gap_stop)),
-        int(bool(settings.adaptive_rho)), grid, stream,
+        int(bool(settings.adaptive_rho)), grid, plan["smem"], plan["xs"],
+        int(plan["shared_side"]), stream,
     )
     _check(lib, rc, "launch")
     fused_admm_loop.launches += 1

@@ -94,6 +94,120 @@ def test_main_path_launches_kernel_once_per_solve(cuda):
     assert r["status"] == int(P.Status.SUCCESS)
 
 
+def _admm_args(cuda, A, f, g, dtype, settings):
+    st, f_s, g_s = _inputs(A, f, g, dtype)
+    m, n = A.shape
+    z0 = torch.zeros(m + n, dtype=dtype, device=cuda)
+    return (st["A"], st["factor"]["op"], st["norm_A"], f.h, tuple(f_s.params), g.h,
+            tuple(g_s.params), settings, z0, z0, 1.0), st["At"]
+
+
+def _admm_lasso(cuda, shape, dtype, seed=7, settings=None):
+    rng = np.random.default_rng(seed)
+    m, n = shape
+    A = rng.standard_normal(shape)
+    b = rng.standard_normal(m)
+    f = P.FunctionVector(P.Function.SQUARE, m, b=b)
+    g = P.FunctionVector(P.Function.ABS, n, c=0.1 * float(np.max(np.abs(A.T @ b))))
+    return _admm_args(cuda, A, f, g, dtype, settings or P.SolverSettings(max_iter=1000))
+
+
+def _admm_plan(args):
+    A = args[0]
+    return pf.launch_plan(pf._lib(), A.device, A.dtype, A.shape[0], A.shape[1], args[3],
+                          args[5])
+
+
+def _assert_admm_match(args, At):
+    """K1 against its plain version as test_kernel_matches_plain holds it:
+    the same status, iterations within 2, optval within 1e-4, x12 and z
+    within 5e-5·max(1, ‖·‖∞); one launch."""
+    before = pf.fused_admm_loop.launches
+    out = pf.fused_admm_loop(*args, At=At)
+    ref = pf.fused_admm_loop_ref(*args)
+    torch.cuda.synchronize()
+    assert pf.fused_admm_loop.launches == before + 1
+    assert int(out["status"]) == int(ref["status"])
+    assert abs(int(out["final_iter"]) - int(ref["final_iter"])) <= 2
+    assert float(out["optval"]) == pytest.approx(float(ref["optval"]), rel=1e-4)
+    for key in ("x12", "z"):
+        lim = 5e-5 * max(1.0, float(ref[key].abs().max()))
+        assert float((out[key] - ref[key]).abs().max()) <= lim
+    return out, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(60, 40), (40, 60), (500, 300), (300, 500)],
+                         ids=["one_block_tall", "one_block_wide", "many_blocks_tall",
+                              "many_blocks_wide"])
+def test_admm_plan_grids_match_plain(cuda, shape, dtype):
+    """The plan's own grid: one block (barriers are __syncthreads) below the
+    threshold, many blocks beyond, tall and wide."""
+    args, At = _admm_lasso(cuda, shape, dtype)
+    plan = _admm_plan(args)
+    assert (plan["blocks"] == 1) == (max(shape) < 100)
+    assert plan["barriers_per_iter"] == 3
+    out, ref = _assert_admm_match(args, At)
+    assert int(ref["status"]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("blocks", [1, 16])
+def test_admm_forced_grids_match_plain(cuda, blocks, dtype, monkeypatch):
+    """The bench size on grids the plan does not pick: one block (its 500
+    rows of A in four groups of at most 128) and 16 blocks."""
+    monkeypatch.setattr(pf, "blocks_for", lambda m, n, sms: blocks)
+    args, At = _admm_lasso(cuda, (500, 300), dtype)
+    assert _admm_plan(args)["blocks"] == blocks
+    _assert_admm_match(args, At)
+
+
+@pytest.mark.parametrize("shared", [True, False], ids=["shared_side", "four_barriers"])
+def test_admm_logistic_shared_side_matches_plain(cuda, shared, monkeypatch):
+    """Logistic 2000x1000 in f64 with every block computing all 2000
+    logistic proxes (4 per thread; forced, the plan keeps 4 barriers there)
+    and in the four-barrier order."""
+    monkeypatch.setattr(pf, "shared_side_for", lambda iterative: shared)
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((2000, 1000))
+    f = P.FunctionVector(P.Function.LOGISTIC, 2000, a=-np.sign(rng.standard_normal(2000)))
+    g = P.FunctionVector(P.Function.ABS, 1000, c=0.2)
+    args, At = _admm_args(cuda, A, f, g, torch.float64, P.SolverSettings(max_iter=1000))
+    plan = _admm_plan(args)
+    assert plan["shared_side"] == shared and plan["blocks"] > 1
+    assert plan["barriers_per_iter"] == (3 if shared else 4)
+    _assert_admm_match(args, At)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(90, 37), (37, 90)], ids=["tall", "wide"])
+def test_admm_column_tiles_match_plain(cuda, shape, dtype, monkeypatch):
+    """Products in column tiles, as every problem whose vectors do not fit
+    in shared memory runs them: 256 (f32) or 512 (f64) bytes of shared
+    memory, 64 columns per tile, on 3 blocks."""
+    itemsize = 4 if dtype == torch.float32 else 8
+    monkeypatch.setattr(pf, "SMEM_BUDGET", 64 * itemsize)
+    monkeypatch.setattr(pf, "blocks_for", lambda m, n, sms: 3)
+    args, At = _admm_lasso(cuda, shape, dtype)
+    plan = _admm_plan(args)
+    assert plan["xs"] == 64 < max(shape)
+    assert not plan["shared_side"] and plan["blocks"] == 3
+    _assert_admm_match(args, At)
+
+
+def test_admm_plan_smem_matches_the_kernel(cuda):
+    """admm_plan's shared memory is what the kernel lays out."""
+    lib = pf._lib()
+    for m, n in ((60, 40), (40, 60), (500, 300), (300, 500), (5000, 2500), (20000, 5000),
+                 (2_000_000, 20)):
+        for itemsize in (4, 8):
+            for sms in (132, 8):
+                plan = pf.admm_plan(m, n, itemsize, sms, sms)
+                assert lib.pogs_fused_admm_smem_bytes(
+                    int(itemsize == 8), m, n, plan["xs"],
+                    int(plan["shared_side"])) == plan["smem"]
+
+
 def _sweep_args(cuda, shape, dtype, K, seed=7):
     rng = np.random.default_rng(seed)
     m, n = shape

@@ -69,17 +69,35 @@ extern "C" void k3_split_reset() {
 }
 """
 
+# The timed copy's stamps accumulate in thread 0's local memory instead
+# (local=True), flushed to the counters when the kernel ends: a global
+# read-modify-write per stamp would add an L2 round trip to every phase.
+LOCAL = r"""
+#define K3_LSTAMP(id)                                         \
+  if (blockIdx.x == 0 && threadIdx.x == 0) {                  \
+    const unsigned long long k3_t = k3_now();                 \
+    k3_acc[id] += k3_t - k3_last;                             \
+    k3_n[id] += 1;                                            \
+    k3_last = k3_t;                                           \
+  }
+"""
+
 BARRIER = re.compile(r"^(\s*)(grid\.sync\(\);|grid_sync\([^;]*\);)\s*$")
 REDUCE = re.compile(r"^(\s*)(grid_partials\([^;]*\);)\s*$")
 PHASE = re.compile(r"//\s*(---.*|C\d.*)")
 
 
-def instrument(src: str):
-    """The timed copy of a cone-kernel source, and the sites: a list of
-    (kind, source line, phase comment) in the order of their ids."""
+def instrument(src: str, kernel: str = "fused_hsde_kernel", marks=(), local=False):
+    """The timed copy of a persistent kernel's source (its __global__
+    function ``kernel``), and the sites: a list of (kind, source line, phase
+    comment) in the order of their ids.  A body line that matches one of the
+    regexes ``marks`` gets a "work" stamp after it; with ``local`` the
+    stamps add up in thread 0's local memory (flushed at the kernel's end)."""
+    marks = [re.compile(mk) for mk in marks]
+    stamp = "K3_LSTAMP" if local else "K3_STAMP"
     lines = src.split("\n")
     start = next(i for i, ln in enumerate(lines)
-                 if "fused_hsde_kernel(" in ln and ("__global__" in ln or "__global__" in lines[i - 1]))
+                 if f"{kernel}(" in ln and ("__global__" in ln or "__global__" in lines[i - 1]))
     while not lines[start].rstrip().endswith("{"):
         start += 1
     end = next(i for i in range(start + 1, len(lines)) if lines[i] == "}")
@@ -94,20 +112,40 @@ def instrument(src: str):
                 ind, stmt = mb.groups()
                 a, b = len(sites), len(sites) + 1
                 sites += [("work", i + 1, phase), ("barrier", i + 1, phase)]
-                out.append(f"{ind}K3_STAMP({a}); {stmt} K3_STAMP({b});")
+                out.append(f"{ind}{stamp}({a}); {stmt} {stamp}({b});")
                 continue
             if mr:
                 ind, stmt = mr.groups()
                 sites.append(("reduce", i + 1, phase))
-                out.append(f"{ind}{stmt} K3_STAMP({len(sites) - 1});")
+                out.append(f"{ind}{stmt} {stamp}({len(sites) - 1});")
                 continue
+            if any(mk.search(ln) for mk in marks):
+                sites.append(("work", i + 1, phase))
+                out.append(f"{ln} {stamp}({len(sites) - 1});")
+                continue
+        if i == end and local:
+            # The last two counters: the kernel's nanoseconds and SM clock
+            # cycles on thread 0 of block 0 (their ratio is the SM clock).
+            out.append("  if (blockIdx.x == 0 && threadIdx.x == 0) {")
+            out.append(f"    for (int k3_i = 0; k3_i < {MAX_SITES - 2}; ++k3_i) {{")
+            out.append("      g_k3_ns[k3_i] += k3_acc[k3_i];")
+            out.append("      g_k3_cnt[k3_i] += k3_n[k3_i];")
+            out.append("    }")
+            out.append(f"    g_k3_ns[{MAX_SITES - 2}] += k3_now() - k3_t0;")
+            out.append(f"    g_k3_ns[{MAX_SITES - 1}] += clock64() - k3_c0;")
+            out.append("  }")
         out.append(ln)
         if i == start:
             out.append("  unsigned long long k3_last = k3_now();")
-    if len(sites) > MAX_SITES:
+            if local:
+                out.append(f"  unsigned long long k3_acc[{MAX_SITES}] = {{0}}, "
+                           f"k3_n[{MAX_SITES}] = {{0}};")
+                out.append("  const unsigned long long k3_t0 = k3_last;")
+                out.append("  const long long k3_c0 = clock64();")
+    if len(sites) > MAX_SITES - (2 if local else 0):
         raise RuntimeError(f"{len(sites)} timing sites, at most {MAX_SITES}")
     last_inc = max(i for i, ln in enumerate(out) if ln.startswith("#include"))
-    out.insert(last_inc + 1, PRELUDE % {"n": MAX_SITES})
+    out.insert(last_inc + 1, PRELUDE % {"n": MAX_SITES} + (LOCAL if local else ""))
     return "\n".join(out), sites
 
 
@@ -118,17 +156,21 @@ def nvcc(src_path, out_path, include):
     if res.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src_path}:\n{res.stdout}\n{res.stderr}")
     return [ln.strip() for ln in (res.stdout + res.stderr).splitlines()
-            if "registers" in ln or "spill" in ln]
+            if "registers" in ln or "spill" in ln or "Function properties" in ln
+            or "Compiling entry" in ln]
 
 
-def build_timed(root, build_dir):
+def build_timed(root, build_dir, name="fused_hsde", kernel="fused_hsde_kernel", marks=(),
+                local=False):
+    """Build the timed copy of TREE's csrc/<name>.cu; returns the library's
+    path, the sites and what ptxas said."""
     csrc = os.path.join(root, "pogs_tpu_torch", "csrc")
-    with open(os.path.join(csrc, "fused_hsde.cu")) as fh:
-        timed, sites = instrument(fh.read())
-    src = os.path.join(build_dir, "fused_hsde_timed.cu")
+    with open(os.path.join(csrc, f"{name}.cu")) as fh:
+        timed, sites = instrument(fh.read(), kernel, marks, local)
+    src = os.path.join(build_dir, f"{name}_timed.cu")
     with open(src, "w") as fh:
         fh.write(timed)
-    lib = os.path.join(build_dir, "libfused_hsde_timed.so")
+    lib = os.path.join(build_dir, f"lib{name}_timed.so")
     ptxas = nvcc(src, lib, csrc)
     return lib, sites, ptxas
 
