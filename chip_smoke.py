@@ -67,14 +67,36 @@ Phases, each printing one JSON line of its own:
      the stream of A, Aᵀ and Kinv at 3.35 TB/s, and the eager loop on the
      same init;
  13. a warm start: b·(1 + 1e-3) re-solved with warm_start=True, K3 and the
-     eager loop.
-Then the kernels' summary line, the card's name and power limit, and last
+     eager loop;
+ 14. the sparse lasso of benchmarks/sparse_bench.py at 2000x1000 and
+     10000x5000, 1% dense, f32 at abs/rel tol 1e-4: kept sparse (CSR +
+     CGLS, the eager loop) in f32 and f64, and densified by
+     sparse_policy="auto" (one K1 launch per solve); warm time per solve by
+     route, iterations, CGLS steps (needed, and frozen by the chunked done
+     check) and the guard each CGLS ended on, SUCCESS, the lasso KKT check
+     and objectives within 1e-2 of one another; the densified solve held
+     to the eager loop on the same init at trajectory level; at 2000x1000
+     the done flag read every 2 (the setting) against every 5 CGLS steps;
+ 15. the rcv1-sized lasso of benchmarks/real_data_benchmark.py (20242x47236,
+     1.53 M nonzeros, f32) through solve_lasso, which keeps it sparse:
+     status, iterations, wall time, ms per ADMM iteration, CGLS steps and
+     the KKT check (max_iter cut if a probe says the solve would pass a
+     minute), and one mv and one rmv alone against their bound;
+ 16. benchmarks/sparse_bench.py's LP (1400x300) and a sparse SOCP
+     (socp_ball 804x200, 800 nonzeros) in f64, kept (the cg strategy,
+     eager) and densified by the auto rule (one K3 launch each, polish
+     off), each held to the eager solve of its dense twin; ms per DR
+     iteration and PCG steps.
+Phases 14 to 16 run with the launch counts reset, and must launch K1 and
+K3 (the densified routes).  Then the kernels' summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Exits 1 when
 no CUDA device is present.  The bench problem generator is that of
 bench.py (seed 42; A ~ N(0,1); 90%-sparse x_true; λ = 0.1‖Aᵀb‖∞); the cone
-problems come from benchmarks/problems.py and tests/conic_fixtures.py.
+problems come from benchmarks/problems.py and tests/conic_fixtures.py,
+the sparse ones are those of benchmarks/sparse_bench.py and
+benchmarks/real_data_benchmark.py, seeded as there.
 """
 
 from __future__ import annotations
@@ -1521,6 +1543,340 @@ def phase_cone_warm_start(torch, P):
         raise AssertionError(f"cone warm start iterations {iters}")
 
 
+# ---------------------------------------------------------------------------
+# Slice 3: the sparse route (CSR + CGLS, the cg cone strategy) and the auto
+# rule, which densifies a sparse A within 1 GiB on the card.
+# ---------------------------------------------------------------------------
+
+SPARSE_TOL = dict(abs_tol=1e-4, rel_tol=1e-4)  # benchmarks/sparse_bench.py:66
+SPARSE_LASSO_SIZES = ((2000, 1000), (10000, 5000))  # benchmarks/sparse_bench.py:289-292
+SPARSE_BUDGET_S = 60.0  # phase 15's solve; beyond it max_iter is cut
+
+
+def sparse_lasso_problem(m, n, density):
+    """The lasso of benchmarks/sparse_bench.py:53-67, seeded as there."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(5)
+    A = sp.random(m, n, density=density, random_state=3, format="csr")
+    A.data[:] = rng.standard_normal(A.nnz)
+    x_true = np.zeros(n)
+    idx = rng.choice(n, n // 20, replace=False)
+    x_true[idx] = rng.standard_normal(idx.size)
+    b = A @ x_true + 0.1 * rng.standard_normal(m)
+    return A, b, 0.1 * float(np.max(np.abs(A.T @ b)))
+
+
+def sparse_kkt(A, b, lam, x):
+    """Max lasso KKT violation relative to λ, for a scipy A (float64)."""
+    x = np.asarray(x, np.float64)
+    grad = A.T @ (A @ x - b)
+    viol = np.where(np.abs(x) > 1e-5, np.abs(grad + lam * np.sign(x)),
+                    np.maximum(np.abs(grad) - lam, 0.0))
+    return float(viol.max()) / lam
+
+
+def sparse_counters():
+    from pogs_tpu_torch.linalg.cgls import cgls_solve
+    from pogs_tpu_torch.solver.hsde import cg_solve_normal_split
+
+    return {"cgls_iterations": cgls_solve.iterations, "cgls_steps": cgls_solve.steps,
+            **{f"cgls_exit_{k}": v for k, v in cgls_solve.exits.items()},
+            "pcg_iterations": cg_solve_normal_split.iterations,
+            "pcg_steps": cg_solve_normal_split.steps}
+
+
+def counter_delta(before):
+    now = sparse_counters()
+    return {key: now[key] - before[key] for key in now}
+
+
+def sparse_solve_ms(torch, solver, f, g, st, rho):
+    """One solve from ρ on a reset warm start, timed by CUDA events."""
+    solver.reset_warm_start()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res = solver.solve(f, g, settings=st, rho=rho)
+    stop.record()
+    torch.cuda.synchronize()
+    return res, start.elapsed_time(stop)
+
+
+def check_every_ab(torch, solver, f, g, st):
+    """The kept route with the done flag read every 2 (the setting) and every
+    5 steps, in the order 2 5 5 2 2 5: ms per solve and frozen steps."""
+    from pogs_tpu_torch.linalg import cgls
+
+    out = {2: [], 5: []}
+    frozen = {2: 0, 5: 0}
+    for i, every in enumerate((2, 5, 5, 2, 2, 5)):
+        c0 = sparse_counters()
+        with patched(cgls, "CHECK_EVERY", every):
+            _, ms = sparse_solve_ms(torch, solver, f, g, st, 1.0 + 1e-4 * i)
+        cnt = counter_delta(c0)
+        out[every].append(ms)
+        frozen[every] += cnt["cgls_steps"] - cnt["cgls_iterations"]
+    return {f"every_{k}": {"ms": v, "median_ms": float(np.median(v)),
+                           "frozen_steps_per_solve": frozen[k] / len(v)}
+            for k, v in out.items()}
+
+
+def phase_sparse_lasso(torch, P):
+    """Phase 14: sparse_bench's lasso kept (CSR + CGLS, eager) in f32 and f64
+    and densified by the auto rule (K1), warm time per solve by route; the
+    densified solve held to K1's plain version (the eager loop, use_fused
+    off) on the same init at trajectory level (the same status, iterations
+    within 2, x within 5e-5·max(1, ‖x‖∞)); at the first size the done-flag
+    read every 2 against 5 CGLS steps."""
+    F, S = P.Function, P.SolverSettings
+    st = S(max_iter=2500, **SPARSE_TOL)
+    rows = []
+    for m, n in SPARSE_LASSO_SIZES:
+        A, b, lam = sparse_lasso_problem(m, n, 0.01)
+        rec = {"phase": "sparse_lasso", "shape": [m, n], "density": 0.01, "nnz": int(A.nnz)}
+        objs = {}
+        for label, dt, policy in (("keep_f32", torch.float32, "keep"),
+                                  ("auto_f32", torch.float32, "auto"),
+                                  ("keep_f64", torch.float64, "keep")):
+            f = P.FunctionVector(F.SQUARE, m, b=b)
+            g = P.FunctionVector(F.ABS, n, c=lam)
+            t0 = time.perf_counter()
+            solver = P.GraphFormSolver(A, dtype=dt, device="cuda", sparse_policy=policy).init()
+            init_ms = (time.perf_counter() - t0) * 1e3
+            k1 = read_counts()["fused_admm_loop"]
+            c0 = sparse_counters()
+            res, times, iters = None, [], []
+            for i in range(3):  # one warm-up, then two timed; each from ρ ≈ 1
+                res, ms = sparse_solve_ms(torch, solver, f, g, st, 1.0 + 1e-4 * i)
+                times.append(ms)
+                iters.append(int(res.final_iter))
+                if res.status != P.Status.SUCCESS:
+                    raise AssertionError(f"sparse lasso {m}x{n} {label}: {res.status.name}")
+            launches = read_counts()["fused_admm_loop"] - k1
+            cnt = counter_delta(c0)
+            x = res.x.double().cpu().numpy()
+            objs[label] = 0.5 * float(np.sum((A @ x - b) ** 2)) + lam * float(np.abs(x).sum())
+            kkt = sparse_kkt(A, b, lam, x)
+            r = {"dense": not solver.A.is_sparse, "init_ms": init_ms,
+                 "ms_per_solve": float(np.mean(times[1:])), "ms_per_solve_all": times,
+                 "iterations": iters, "k1_launches": launches, "kkt": kkt,
+                 "objective": objs[label],
+                 "cgls_iterations_per_solve": cnt["cgls_iterations"] / len(times),
+                 "cgls_frozen_steps_per_solve":
+                     (cnt["cgls_steps"] - cnt["cgls_iterations"]) / len(times),
+                 "cgls_exits": {k[len("cgls_exit_"):]: v for k, v in cnt.items()
+                                if k.startswith("cgls_exit_")}}
+            r["ms_per_iter"] = r["ms_per_solve"] / (np.mean(iters[1:]) + 1)
+            ok = launches == (len(times) if policy == "auto" else 0) and kkt < 1e-2 \
+                and r["dense"] == (policy == "auto")
+            if policy == "auto":
+                # K1 against its plain version on the same densified init.
+                plain, r["plain_ms"] = sparse_solve_ms(
+                    torch, solver, f, g, S(max_iter=2500, use_fused=False, **SPARSE_TOL),
+                    1.0 + 2e-4)
+                ref = plain.x.double().cpu().numpy()
+                x_err = float(np.abs(x - ref).max())
+                r["vs_plain"] = {"status": [res.status.name, plain.status.name],
+                                 "iterations": [iters[-1], int(plain.final_iter)],
+                                 "x_max_abs_err": x_err,
+                                 "x_limit": 5e-5 * max(1.0, float(np.abs(ref).max()))}
+                ok = ok and res.status == plain.status \
+                    and abs(iters[-1] - int(plain.final_iter)) <= 2 \
+                    and x_err <= r["vs_plain"]["x_limit"] \
+                    and read_counts()["fused_admm_loop"] - k1 == launches
+            elif (m, n) == SPARSE_LASSO_SIZES[0]:
+                r["check_every"] = check_every_ab(torch, solver, f, g, st)
+            rec[label] = r
+            if not ok:
+                emit(rec)
+                raise AssertionError(f"sparse lasso {m}x{n} {label}: {launches} K1 launches, "
+                                     f"KKT {kkt}, {r.get('vs_plain')}")
+        ref = objs["keep_f64"]
+        rec["objective_rel_diff"] = {k: abs(v - ref) / abs(ref) for k, v in objs.items()}
+        rec["keep_over_auto"] = rec["keep_f32"]["ms_per_solve"] / rec["auto_f32"]["ms_per_solve"]
+        rec["ok"] = max(rec["objective_rel_diff"].values()) <= 1e-2
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"sparse lasso {m}x{n}: objectives {objs}")
+        rows.append(rec)
+    return rows
+
+
+def rcv1_sized_lasso():
+    """The rcv1-sized lasso of benchmarks/real_data_benchmark.py:315-323."""
+    import scipy.sparse as sp
+
+    m, n, density = 20242, 47236, 0.0016
+    rng = np.random.default_rng(11)
+    A = sp.random(m, n, density=density, random_state=7, format="csr", dtype=np.float64)
+    A.data[:] = rng.standard_normal(A.nnz)
+    x_true = np.zeros(n)
+    idx = rng.choice(n, 200, replace=False)
+    x_true[idx] = rng.standard_normal(200)
+    b = np.asarray(A @ x_true + 0.1 * rng.standard_normal(m))
+    return A, b, 0.1 * float(np.max(np.abs(A.T @ b)))
+
+
+def spmv_bytes(A, itemsize, transposed):
+    """Bytes of one CSR product: values and column indices (int32) read once,
+    the row pointers, the input vector read and the output written once."""
+    m, n = A.shape
+    rows, cols = (n, m) if transposed else (m, n)
+    return A.nnz * (itemsize + 4) + 4 * (rows + 1) + itemsize * (cols + rows)
+
+
+def phase_sparse_real_size(torch, P):
+    """Phase 15: the rcv1-sized lasso through solve_lasso (auto keeps it
+    sparse), and one mv and one rmv alone against their bound."""
+    from pogs_tpu_torch.linalg.matrix import as_matrix_op
+    from pogs_tpu_torch.solver.graph import densify_sparse
+
+    t0 = time.perf_counter()
+    A, b, lam = rcv1_sized_lasso()
+    m, n = A.shape
+    out = {"phase": "sparse_real_size", "shape": [m, n], "nnz": int(A.nnz),
+           "dtype": "float32", "generate_s": time.perf_counter() - t0,
+           "auto_densifies": densify_sparse("auto", (m, n), 4, "cuda")}
+    if out["auto_densifies"]:
+        raise AssertionError("the rcv1-sized A would be densified")
+    tol = dict(gap_stop=False, **SPARSE_TOL)
+    # A 20-iteration probe sets max_iter within the time budget.
+    probe = P.GraphFormSolver(A, dtype=torch.float32, device="cuda")
+    probe.init()
+    t0 = time.perf_counter()
+    probe.solve(P.FunctionVector(P.Function.SQUARE, m, b=b),
+                P.FunctionVector(P.Function.ABS, n, c=lam),
+                settings=P.SolverSettings(max_iter=20, **tol))
+    per_iter = (time.perf_counter() - t0) / 20
+    max_iter = 1000
+    if per_iter * max_iter > SPARSE_BUDGET_S:
+        max_iter = max(50, int(SPARSE_BUDGET_S / per_iter) // 10 * 10)
+        out["max_iter_cut"] = f"max_iter 1000 -> {max_iter}: {per_iter * 1e3:.1f} ms per " \
+                              f"iteration in a 20-iteration probe"
+    out["max_iter"] = max_iter
+    k1 = read_counts()["fused_admm_loop"]
+    c0 = sparse_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = P.solve_lasso(A, b, lam, dtype=np.float32, max_iter=max_iter, **tol)
+    wall = time.perf_counter() - t0
+    cnt = counter_delta(c0)
+    kkt = sparse_kkt(A, b, lam, r["x"])
+    out.update(status=P.Status(r["status"]).name, iterations=r["iterations"], wall_s=wall,
+               ms_per_iter=wall * 1e3 / (r["iterations"] + 1),
+               cgls_iterations=cnt["cgls_iterations"],
+               cgls_frozen_steps=cnt["cgls_steps"] - cnt["cgls_iterations"],
+               cgls_exits={k[len("cgls_exit_"):]: v for k, v in cnt.items()
+                           if k.startswith("cgls_exit_")},
+               k1_launches=read_counts()["fused_admm_loop"] - k1, kkt=kkt)
+    # One product of each direction alone, against bytes over 3.35 TB/s.
+    op = as_matrix_op(A, torch.float32, "cuda")
+    x = torch.randn(n, device="cuda")
+    y = torch.randn(m, device="cuda")
+    for name, fn, tr in (("mv", lambda: op.mv(x), False), ("rmv", lambda: op.rmv(y), True)):
+        ms = cuda_ms(torch, fn, 50)
+        bms, bby = bound_ms(spmv_bytes(A, 4, tr), 2 * A.nnz, "float32")
+        out[name] = {"ms": ms, "bound_ms": bms, "bound_by": bby, "share": bms / ms}
+    ok = (r["status"] in (0, int(P.Status.MAX_ITER)) and out["k1_launches"] == 0
+          and cnt["cgls_iterations"] > 0 and kkt < 1e-2
+          and (r["status"] == 0 or "max_iter_cut" in out))
+    out["ok"] = bool(ok)
+    emit(out)
+    if not ok:
+        raise AssertionError(f"rcv1-sized lasso: {out['status']}, KKT {kkt}")
+    return out
+
+
+def sparse_lp_problem(m0=800, n=300, density=0.02):
+    """The LP of benchmarks/sparse_bench.py:145-170: sparse rows stacked with
+    ±I, all NonNeg (1400x300 at the defaults)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(2)
+    Araw = sp.random(m0, n, density=density, random_state=8, format="csr")
+    Araw.data[:] = rng.standard_normal(Araw.nnz)
+    A = sp.vstack([Araw, sp.eye(n), -sp.eye(n)]).tocsr()
+    x0 = rng.standard_normal(n)
+    b = A @ x0 + rng.random(A.shape[0]) + 0.1
+    return {"A": A, "b": b, "c": rng.standard_normal(n), "dims": {"l": A.shape[0]}}
+
+
+def phase_sparse_cone(torch, P):
+    """Phase 16: a sparse LP and a sparse SOCP, kept (the cg strategy, eager,
+    the polish on as by default) and densified by the auto rule (K3, polish
+    off), each held to the eager f64 solve of its dense twin with the same
+    polish setting (optimum_check's rule: the same status, c'x within
+    1e-3·max(1, |c'x|), x within 1e-2·max(1, ‖x‖∞))."""
+    import scipy.sparse as sp
+
+    problems, _ = cone_problems()
+    soc = problems.socp_ball()  # the preset's own size, as phases 10 to 13
+    cases = (("lp_1400x300", sparse_lp_problem()),
+             ("socp_ball_804x200", dict(soc, A=sp.csr_matrix(soc["A"]))))
+    rows = []
+    for name, p in cases:
+        A, b, c, dims = p["A"], p["b"], p["c"], p["dims"]
+        kw = dict(max_iter=CONE_MAX_ITER, dtype="float64", **CONE_TOL)
+        twins = {polish: P.solve_cone_problem(c, A.toarray(), b, dims, use_fused=False,
+                                              polish=polish, **kw)
+                 for polish in (True, False)}
+        rec = {"phase": "sparse_cone", "case": name, "shape": list(A.shape), "nnz": int(A.nnz),
+               "dtype": "float64",
+               "twin": {("polish" if k else "no_polish"): {
+                   "status": t["status_name"], "iterations": t["iterations"],
+                   "optval": t["optval"]} for k, t in twins.items()}}
+        ok = all(t["status"] == 0 for t in twins.values())
+
+        def held(r, polish):
+            twin = twins[polish]
+            x_ref = twin["x"]
+            err = abs(r["optval"] - twin["optval"]) / max(1.0, abs(twin["optval"]))
+            x_err = float(np.abs(r["x"] - x_ref).max()) / max(1.0, float(np.abs(x_ref).max()))
+            return err, x_err, r["status"] == 0 and err <= 1e-3 and x_err <= 1e-2
+
+        # Kept: the cg strategy in the eager loop (the polish on, as by default).
+        cones = P.dims_to_cones(dims)
+        kept = P.ConeSolver(A, Ky=cones, dtype=torch.float64, device="cuda",
+                            sparse_policy="keep").init()
+        c0 = sparse_counters()
+        k3 = read_counts()["fused_hsde_solve"]
+        t0 = time.perf_counter()
+        res = kept.solve(b, c, settings=P.SolverSettings(max_iter=CONE_MAX_ITER, **CONE_TOL))
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        cnt = counter_delta(c0)
+        r_k = {"status": int(res.status), "optval": float(res.optval),
+               "x": res.x.cpu().numpy()}
+        err, x_err, good = held(r_k, True)
+        it = int(res.final_iter)
+        rec["kept"] = {"strategy": kept.strategy, "status": res.status.name, "iterations": it,
+                       "ms_per_solve": ms, "ms_per_dr_iter": ms / (it + 1),
+                       "pcg_iterations": cnt["pcg_iterations"],
+                       "pcg_frozen_steps": cnt["pcg_steps"] - cnt["pcg_iterations"],
+                       "pcg_per_dr_iter": cnt["pcg_iterations"] / (it + 1),
+                       "k3_launches": read_counts()["fused_hsde_solve"] - k3,
+                       "objective_rel_err": err, "x_rel_err": x_err}
+        ok = ok and good and kept.strategy == "cg" and rec["kept"]["k3_launches"] == 0
+        # Densified by the auto rule, without polish: one K3 launch.
+        k3 = read_counts()["fused_hsde_solve"]
+        t0 = time.perf_counter()
+        r_d = P.solve_cone_problem(c, A, b, dims, polish=False, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        err, x_err, good = held(r_d, False)
+        launched = read_counts()["fused_hsde_solve"] - k3
+        rec["densified"] = {"status": r_d["status_name"], "iterations": r_d["iterations"],
+                            "ms_one_shot": ms, "k3_launches": launched,
+                            "objective_rel_err": err, "x_rel_err": x_err}
+        ok = ok and good and launched == 1
+        rec["ok"] = bool(ok)
+        emit(rec)
+        if not ok:
+            raise AssertionError(f"sparse cone {name}")
+        rows.append(rec)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -1545,6 +1901,15 @@ def main() -> int:
     launches_h = phase_cone_main_path(torch, P)
     phase_cone_real_size(torch, P)
     phase_cone_warm_start(torch, P)
+    # Slice 3's path: the densified routes launch K1 and K3.
+    reset_counts()
+    phase_sparse_lasso(torch, P)
+    phase_sparse_real_size(torch, P)
+    phase_sparse_cone(torch, P)
+    sparse_launches = read_counts()
+    emit({"phase": "sparse_path_launches", **sparse_launches})
+    if not sparse_launches["fused_admm_loop"] or not sparse_launches["fused_hsde_solve"]:
+        raise AssertionError(f"the sparse path launched {sparse_launches}")
     if "jax" in sys.modules or "pogs_tpu" in sys.modules:
         raise AssertionError("the port imported jax or pogs_tpu")
     # No single PyTorch call computes an ADMM or HSDE solve: library_ms null.

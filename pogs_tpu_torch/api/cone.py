@@ -9,8 +9,10 @@ Counterpart of ``pogs_tpu/api/cone.py``.
             q: list of SOC sizes               s: list of SDP block sizes
             ep/ed: #primal/dual exp cones
 
-Quadratic objectives (P) come with the QP slice and raise
-``NotImplementedError`` here.
+A may be dense or sparse (a scipy matrix or a sparse torch tensor): a
+sparse A reaches ConeSolver as it is, kept sparse or densified by
+``sparse_policy``.  Quadratic objectives
+(P) come with the QP slice and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -20,12 +22,20 @@ import time
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from pogs_tpu_torch.types import Cone, ConeConstraint, SolverSettings, Status
+from pogs_tpu_torch.linalg.matrix import _torch_coo, is_sparse_input
 from pogs_tpu_torch.solver.cone import ConeSolver
 
 # solve_cone_problem's solvers, keyed by a fingerprint of the matrix.
 _CONE_PROBLEM_SOLVERS: dict = {}
+
+
+def _host_coo(A) -> torch.Tensor:
+    """A scipy matrix or a sparse torch tensor as a coalesced float64 COO
+    tensor on the CPU."""
+    return _torch_coo(A, torch.float64, "cpu")
 
 
 def dims_to_cones(dims: dict) -> list:
@@ -68,7 +78,12 @@ def auto_rho(A, b, c, dims: dict, P=None, mode: Optional[str] = None,
     if mode is None or mode == "auto":
         mode = "ratio_normA" if (has_nonsep or P is not None) else "ratio"
     if mode == "ratio_normA":
-        norm_A = float(np.linalg.norm(np.asarray(A)))
+        if hasattr(A, "power"):  # scipy sparse
+            norm_A = float(np.sqrt(A.power(2).sum()))
+        elif is_sparse_input(A):
+            norm_A = float(torch.linalg.vector_norm(_host_coo(A).values()))
+        else:
+            norm_A = float(np.linalg.norm(np.asarray(A)))
         if norm_b > 1e-10 and norm_c > 1e-10 and norm_A > 1e-10:
             rho = min(max(norm_c / (norm_b * norm_A), 1e-4), 1e1)
         else:
@@ -106,6 +121,7 @@ def solve_cone(
     polish: bool = True,
     use_fused: Optional[bool] = None,
     device=None,
+    sparse_policy: str = "auto",
 ):
     """General cone-form solve; returns the reference result-dict contract
     (numpy arrays)."""
@@ -116,7 +132,8 @@ def solve_cone(
     )
     if solver is None:
         solver = ConeSolver(A, Kx=Kx, Ky=Ky, settings=settings, strategy=strategy,
-                            dtype=dtype, assume_svec=assume_svec, device=device)
+                            dtype=dtype, assume_svec=assume_svec, device=device,
+                            sparse_policy=sparse_policy)
     if rho is not None:
         solver.rho = float(rho)
     t0 = time.perf_counter()
@@ -142,7 +159,11 @@ def solve_cone(
     }
     out["s"] = np.asarray(b) - y
     # Primal residual diagnostic.
-    r = np.asarray(A) @ x - y
+    if isinstance(A, torch.Tensor) and is_sparse_input(A):
+        Ax = (_host_coo(A) @ torch.from_numpy(x).double()).numpy()
+    else:
+        Ax = A @ x if is_sparse_input(A) else np.asarray(A) @ x
+    r = Ax - y
     out["primal_res"] = float(np.linalg.norm(r))
     eps_pri = float(np.sqrt(len(y)) * abs_tol
                     + rel_tol * max(np.linalg.norm(x), np.linalg.norm(y)))
@@ -167,22 +188,32 @@ def solve_cone_problem(
     verbose: int = 0,
     dtype=None,
     device=None,
+    sparse_policy: str = "auto",
     **kw,
 ):
     """SCS-style entry point: c, A, b, dims.  The ConeSolver (equilibration
     and factor) is reused across calls with the same matrix, cones, dtype,
-    device and options."""
-    A = np.asarray(A)
+    device and options; a sparse A (scipy or torch) stays sparse."""
+    sparse = is_sparse_input(A)
+    if not sparse:
+        A = np.asarray(A)
     cones_y = dims_to_cones(dims)
     if rho is None:
         rho = auto_rho(A, b, c, dims, P=P, mode=rho_mode, scale=rho_scale)
     solver = kw.pop("solver", None)
     if solver is None:
         h = hashlib.sha256()
-        h.update(str(A.shape).encode())
-        h.update(np.ascontiguousarray(A).tobytes())
+        h.update(str(tuple(A.shape)).encode())
+        if sparse:
+            # A sparse matrix by its coordinates and values.
+            C = _host_coo(A)
+            for part in (C.indices(), C.values()):
+                h.update(part.numpy().tobytes())
+        else:
+            h.update(np.ascontiguousarray(A).tobytes())
         key = (h.hexdigest(), tuple((int(cc.cone), cc.indices) for cc in cones_y),
-               str(dtype), str(device), kw.get("assume_svec", False), kw.get("strategy"))
+               str(dtype), str(device), kw.get("assume_svec", False), kw.get("strategy"),
+               sparse_policy)
         solver = _CONE_PROBLEM_SOLVERS.get(key)
         if solver is None:
             if len(_CONE_PROBLEM_SOLVERS) > 8:
@@ -191,7 +222,8 @@ def solve_cone_problem(
                                       max_iter=max_iter, verbose=verbose)
             solver = ConeSolver(A, Ky=cones_y, settings=settings,
                                 strategy=kw.get("strategy"), dtype=dtype,
-                                assume_svec=kw.get("assume_svec", False), device=device)
+                                assume_svec=kw.get("assume_svec", False), device=device,
+                                sparse_policy=sparse_policy)
             _CONE_PROBLEM_SOLVERS[key] = solver
     return solve_cone(
         A, b, c, Ky=cones_y, P=P, rho=rho, abs_tol=abs_tol, rel_tol=rel_tol,

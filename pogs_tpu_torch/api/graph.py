@@ -5,7 +5,8 @@ Counterpart of ``pogs_tpu/api/graph.py``: the same FunctionVector
 constructions, the same result dict (x, y, l, optval, iterations, status)
 and the same defaults (abs_tol 1e-4, rel_tol 1e-4, max_iter 2500, rho 1.0,
 adaptive_rho and gap_stop on).  Every builder takes ``device=``: by default
-the device of a tensor A, else CUDA.
+the device of a tensor A, else CUDA; A may be sparse (a scipy matrix or a
+sparse tensor), and ``sparse_policy=`` goes on to the solver.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from pogs_tpu_torch.types import Function, FunctionVector, SolverSettings
+from pogs_tpu_torch.linalg.matrix import is_sparse_input
 from pogs_tpu_torch.solver.graph import GraphFormSolver
 
 
@@ -58,7 +60,10 @@ def solve_graph_form(
 
 
 def _shape(A):
-    if isinstance(A, torch.Tensor):
+    """A with its shape: a tensor or a scipy sparse matrix passes through (a
+    sparse A reaches GraphFormSolver, which keeps it sparse or densifies it
+    by ``sparse_policy``), anything else becomes an ndarray."""
+    if isinstance(A, torch.Tensor) or is_sparse_input(A):
         return A, tuple(A.shape)
     A = np.asarray(A)
     return A, A.shape

@@ -10,6 +10,10 @@ Counterpart of ``pogs_tpu/linalg/equil.py``:
      cone, so the scaling is uniform inside it).
   3. d ← √d, e ← √e; A ← diag(d) · A · diag(e).
   4. Normalize: ‖A‖_F / √min(m,n) = 1, folding √normA into both d and e.
+
+A sparse operator takes the operator path of the JAX package: Sinkhorn on
+the view of its elementwise square (``sq_mv``/``sq_rmv``), then ``scale``,
+``frob2`` and ``scalar_mul``; nothing is densified.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ from typing import Callable, Optional
 
 import torch
 
-from pogs_tpu_torch.linalg.matrix import DenseMatrix
+from pogs_tpu_torch.linalg.matrix import DenseMatrix, SparseMatrix
 
 SINKHORN_CONST = 1e-4
 EQUIL_ITERS = 50
@@ -68,8 +72,10 @@ def sinkhorn_knopp(bm, brm, m: int, n: int, dt, device, iters: int = EQUIL_ITERS
 def equilibrate(A, constrain_d: Optional[Callable] = None,
                 constrain_e: Optional[Callable] = None,
                 iters: int = EQUIL_ITERS) -> EquilResult:
-    """Full equilibration pipeline. ``A`` is a tensor or a DenseMatrix; the
-    returned ``EquilResult.A`` is of the same kind."""
+    """Full equilibration pipeline. ``A`` is a tensor, a DenseMatrix or a
+    SparseMatrix; the returned ``EquilResult.A`` is of the same kind."""
+    if isinstance(A, SparseMatrix):
+        return _equilibrate_op(A, constrain_d, constrain_e, iters)
     is_op = isinstance(A, DenseMatrix)
     At = A.dense() if is_op else A
     m, n = At.shape
@@ -89,3 +95,21 @@ def equilibrate(A, constrain_d: Optional[Callable] = None,
     scale = torch.sqrt(norm_a)
     return EquilResult(A=DenseMatrix(A_eq) if is_op else A_eq,
                        d=d / scale, e=e / scale)
+
+
+def _equilibrate_op(A, constrain_d, constrain_e, iters) -> EquilResult:
+    """The pipeline on an operator: Sinkhorn on A∘A through sq_mv/sq_rmv,
+    then A.scale(d, e) normalized by its Frobenius norm."""
+    m, n = A.shape
+    dt, dev = A.dtype, A.device
+    d, e = sinkhorn_knopp(A.sq_mv, A.sq_rmv, m, n, dt, dev, iters,
+                          constrain_d, constrain_e)
+    d = torch.sqrt(d)
+    e = torch.sqrt(e)
+    A_eq = A.scale(d, e)
+    norm_a = torch.sqrt(A_eq.frob2()) / torch.sqrt(
+        torch.tensor(float(min(m, n)), dtype=dt, device=dev))
+    norm_a = torch.where(norm_a > 0, norm_a, torch.ones_like(norm_a))  # A = 0
+    A_eq = A_eq.scalar_mul(1.0 / norm_a)
+    scale = torch.sqrt(norm_a)
+    return EquilResult(A=A_eq, d=d / scale, e=e / scale)

@@ -13,28 +13,31 @@ from typing import Optional
 
 import torch
 
+from pogs_tpu_torch.linalg.matrix import matvecs
+
 NORM_EST_TOL = 1e-4
 NORM_EST_MAX_ITER = 50
 
 
 def norm2_est(A, tol: float = NORM_EST_TOL, max_iter: int = NORM_EST_MAX_ITER,
               seed: int = 0, x0: Optional[torch.Tensor] = None):
-    """Estimate ‖A‖₂ by power iteration on AᵀA.
+    """Estimate ‖A‖₂ by power iteration on AᵀA, through A's products (a
+    tensor or a matrix operator).
 
     ``x0`` is the start vector; without one it is drawn uniformly on [0, 1)
     from a ``torch.Generator`` seeded with ``seed``.
     """
-    Ad = A.dense() if hasattr(A, "dense") else A
-    m, n = Ad.shape
-    dt = Ad.dtype
+    m, n = A.shape
+    dt, dev = A.dtype, A.device
+    amv, armv = matvecs(A)
     if x0 is None:
         gen = torch.Generator().manual_seed(seed)
         x0 = torch.rand(n, generator=gen, dtype=torch.float32)
-    x = x0.to(dtype=dt, device=Ad.device)
+    x = x0.to(dtype=dt, device=dev)
 
     def sweep(x):
-        sx = torch.mv(Ad, x)
-        x = torch.mv(Ad.T, sx)
+        sx = amv(x)
+        x = armv(sx)
         normx = torch.linalg.vector_norm(x)
         norm_sx = torch.linalg.vector_norm(sx)
         # A zero operator yields ‖A‖₂ = 0, not 0/0 = NaN.
@@ -48,7 +51,7 @@ def norm2_est(A, tol: float = NORM_EST_TOL, max_iter: int = NORM_EST_MAX_ITER,
     # est > 0 and the relative change is at least tol.
     x, est = sweep(x)
     last = torch.zeros_like(est)
-    active = torch.ones((), dtype=torch.bool, device=Ad.device)
+    active = torch.ones((), dtype=torch.bool, device=dev)
     for _ in range(1, max_iter):
         active = active & (est > 0) & (torch.abs(est - last) >= tol * est)
         x_new, est_new = sweep(x)

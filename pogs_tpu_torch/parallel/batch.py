@@ -30,7 +30,8 @@ from pogs_tpu_torch.linalg.equil import equilibrate
 from pogs_tpu_torch.linalg.norm import norm2_est
 from pogs_tpu_torch.projector.direct import DirectProjector
 from pogs_tpu_torch.solver.admm import admm_loop
-from pogs_tpu_torch.solver.graph import _is_sparse, _use_fused, resolve_device
+from pogs_tpu_torch.linalg.matrix import is_sparse_input
+from pogs_tpu_torch.solver.graph import _use_fused, resolve_device
 from pogs_tpu_torch.ops.fused_admm import _fv, fused_admm_loop, fused_admm_supported
 from pogs_tpu_torch.ops.fused_admm_batch import fused_batched_lasso_sweep
 from pogs_tpu_torch.utils.precision import highest_precision
@@ -69,8 +70,10 @@ def _fused_batch_eligible(dtype, device, settings: SolverSettings, c_kind: str,
 def _matrix(A, device) -> torch.Tensor:
     """A as a dense tensor on ``device``: float64 input solves in float64,
     anything else in float32, as ``GraphFormSolver``."""
-    if _is_sparse(A):
-        raise NotImplementedError("sparse matrices are not ported yet")
+    if is_sparse_input(A):
+        # As in the JAX package, whose batches take A through jnp.asarray.
+        raise NotImplementedError(
+            "batched solves take a dense A: the JAX package takes no sparse A here either")
     A_t = A if isinstance(A, torch.Tensor) else torch.as_tensor(np.asarray(A))
     dtype = torch.float64 if A_t.dtype == torch.float64 else torch.float32
     return A_t.to(device=device, dtype=dtype)

@@ -34,6 +34,7 @@ from typing import Callable
 import torch
 
 from pogs_tpu_torch.types import SolverSettings, Status
+from pogs_tpu_torch.linalg.matrix import matvecs
 from pogs_tpu_torch.solver.anderson import anderson_init, anderson_step
 
 # Adaptive-rho / over-relaxation constants (pogs.cpp:94-110).  The CUDA solve
@@ -156,10 +157,9 @@ def admm_loop(
     ``z0``/``zt0`` use the packed [x; y] warm-start convention.  Returns a
     dict of scaled-space results plus diagnostics, as the JAX ``admm_loop``.
     """
-    Ad = A.dense() if hasattr(A, "dense") else A
-    m, n = Ad.shape
-    dt = Ad.dtype
-    dev = Ad.device
+    m, n = A.shape
+    dt, dev = A.dtype, A.device
+    amv, armv = matvecs(A)
     exact_mode = settings.use_exact_tol
 
     def T(v):
@@ -208,8 +208,8 @@ def admm_loop(
         nrm_r_a = norm_A * _nrm(x12 - x_new) + _nrm(y12 - y_new)
 
         # Exact residuals (pogs.cpp:310-336), selected when near tolerance.
-        r_vec = torch.mv(Ad, x12) - y12
-        s_vec = torch.mv(Ad.T, y12 + st["yt"] - yprev) + (x12 + st["xt"] - xprev)
+        r_vec = amv(x12) - y12
+        s_vec = armv(y12 + st["yt"] - yprev) + (x12 + st["xt"] - xprev)
         if exact_mode:
             near = torch.ones((), dtype=torch.bool, device=dev)
             dm = torch.where(d == 0, torch.ones_like(d), d)
@@ -355,14 +355,13 @@ def postsolve_verify(A, d, e, x12, y12, status, abs_tol, rel_tol):
     """Exact-tol post-solve verification (pogs.cpp:520-564): recompute the
     primal residual in the original space and downgrade SUCCESS → MAX_ITER
     if it misses tolerance. x12/y12 are *scaled*."""
-    Ad = A.dense() if hasattr(A, "dense") else A
-    m = Ad.shape[0]
-    dt = Ad.dtype
+    m = A.shape[0]
+    dt = A.dtype
     sqrtm_atol = torch.sqrt(torch.tensor(float(m), dtype=dt)) * abs_tol
     dm = torch.where(d == 0, torch.ones_like(d), d)
-    ax_orig = torch.mv(Ad, x12) / dm
+    ax_orig = matvecs(A)[0](x12) / dm
     y_orig = y12 / dm
     res = _nrm(ax_orig - y_orig)
-    eps = sqrtm_atol.to(Ad.device) + rel_tol * torch.maximum(_nrm(ax_orig), _nrm(y_orig))
+    eps = sqrtm_atol.to(A.device) + rel_tol * torch.maximum(_nrm(ax_orig), _nrm(y_orig))
     bad = (status == Status.SUCCESS.value) & (res > eps)
     return torch.where(bad, Status.MAX_ITER.value, status).to(torch.int32)

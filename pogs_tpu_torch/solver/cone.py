@@ -22,8 +22,10 @@ Which loop runs the HSDE solve (``settings.use_fused``):
     polishes, as in the JAX package; raises on an ineligible problem;
   * False: the eager loop.
 
-Not ported yet: a quadratic P (the QP routes, slice 5), sparse matrices
-and the CGLS projector (slice 3).
+A sparse A (``sparse_policy``, as ``GraphFormSolver``'s) stays a
+SparseMatrix: the HSDE solve then takes the matrix-free ``cg`` strategy,
+and the graph-form cone path the CGLS projector; neither reaches the
+kernel.  Not ported yet: a quadratic P (the QP routes, slice 5).
 """
 
 from __future__ import annotations
@@ -40,11 +42,12 @@ from pogs_tpu_torch.types import (
 )
 from pogs_tpu_torch.cones.sets import ConeSet
 from pogs_tpu_torch.linalg.equil import equilibrate
-from pogs_tpu_torch.linalg.matrix import DenseMatrix
+from pogs_tpu_torch.linalg.matrix import input_dtype, matvecs
 from pogs_tpu_torch.linalg.norm import norm2_est
 from pogs_tpu_torch.projector.direct import DirectProjector
+from pogs_tpu_torch.projector.indirect import CglsProjector
 from pogs_tpu_torch.solver.admm import admm_loop, postsolve_verify
-from pogs_tpu_torch.solver.graph import _is_sparse, resolve_device
+from pogs_tpu_torch.solver.graph import matrix_operator, resolve_device
 from pogs_tpu_torch.solver.hsde import hsde_solve, polish_plan
 from pogs_tpu_torch.ops.fused_hsde import fused_hsde_eligible, fused_hsde_solve
 from pogs_tpu_torch.utils.precision import highest_precision
@@ -64,20 +67,14 @@ class ConeSolver:
         dtype=None,
         assume_svec: bool = False,
         device=None,
+        sparse_policy: str = "auto",
     ):
-        if _is_sparse(A):
-            raise NotImplementedError(
-                "sparse matrices come with slice 3 (sparse and indirect)")
-        if projector != "direct":
-            raise NotImplementedError(
-                f"projector {projector!r} comes with slice 3 (sparse and indirect)")
+        if projector not in ("direct", "cgls"):
+            raise ValueError(f"unknown projector {projector!r}")
         self.device = resolve_device(A, device)
-        A_t = A if isinstance(A, torch.Tensor) else torch.as_tensor(np.asarray(A))
-        if dtype is None:
-            dtype = torch.float64 if A_t.dtype == torch.float64 else torch.float32
-        self.dtype = _torch_dtype(dtype)
-        A_t = A_t.to(device=self.device, dtype=self.dtype)
-        self.m, self.n = A_t.shape
+        self.dtype = input_dtype(A) if dtype is None else _torch_dtype(dtype)
+        Aop = matrix_operator(A, self.dtype, self.device, sparse_policy)
+        self.m, self.n = Aop.shape
         self.Kx = ConeSet(list(Kx), self.n)
         self.Ky = ConeSet(list(Ky), self.m)
         # svec transform: conjugate SDP coordinates by the √2 off-diagonal
@@ -87,19 +84,28 @@ class ConeSolver:
         self._col_scale = self.Kx.svec_scale()
         self._needs_svec = (self.Ky.has_sdp or self.Kx.has_sdp) and not assume_svec
         if self._needs_svec:
-            A_t = A_t * self._tensor(self._row_scale)[:, None] \
-                * self._tensor(1.0 / self._col_scale)[None, :]
-        self.A = DenseMatrix(A_t)
+            Aop = Aop.scale(self._tensor(self._row_scale), self._tensor(1.0 / self._col_scale))
+        self.A = Aop
         base = settings or SolverSettings()
         # Cone problems run the graph loop in exact-tolerance mode.
         self.settings = base.replace(use_exact_tol=True)
         self.use_hsde = self.Kx.is_empty
-        # SMW through the direct projector's cached inverse; 'direct' (the
-        # embedding's normal equations) on request.
-        self.strategy = strategy or "smw"
-        if self.strategy == "cg":
-            raise NotImplementedError(
-                "the cg strategy comes with slice 3 (sparse and indirect)")
+        if self.A.is_sparse:
+            projector = "cgls"  # a sparse A pairs with CGLS, as in the reference
+        self.projector = projector
+        if strategy is None:
+            # The reference's choice: matrix-free CG for a sparse A; SMW
+            # through the direct projector's cached inverse; the embedding's
+            # normal equations by Cholesky up to dimension 2000; CG beyond.
+            if self.A.is_sparse:
+                strategy = "cg"
+            elif projector == "direct":
+                strategy = "smw"
+            elif self.n + self.m + 1 <= 2000:
+                strategy = "direct"
+            else:
+                strategy = "cg"
+        self.strategy = strategy
         self._init_state = None
         self._u = None
         self.rho = float(base.rho)
@@ -111,24 +117,27 @@ class ConeSolver:
 
     def init(self):
         if self._init_state is None:
+            proj = DirectProjector("inverse") if self.projector == "direct" else CglsProjector()
             with highest_precision():
                 eq = equilibrate(self.A, constrain_d=self.Ky.constrain_average,
                                  constrain_e=self.Kx.constrain_average)
                 norm_A = norm2_est(eq.A)
-                factor = DirectProjector("inverse").init(eq.A, s=1.0)
-            self._set_init_state({"A": eq.A.dense(), "d": eq.d, "e": eq.e,
-                                  "norm_A": norm_A, "factor": factor})
+                factor = proj.init(eq.A, s=1.0)
+            self._set_init_state({"A": eq.A if eq.A.is_sparse else eq.A.dense(),
+                                  "d": eq.d, "e": eq.e, "norm_A": norm_A, "factor": factor})
         return self
 
     def _set_init_state(self, state: dict):
         state = dict(state)
-        # The cone kernel reads Aᵀ as a row-major copy; keep it with A.
-        state["At"] = state["A"].T.contiguous()
+        # The cone kernel reads Aᵀ as a row-major copy; keep it with a dense A.
+        A = state["A"]
+        state["At"] = A.T.contiguous() if isinstance(A, torch.Tensor) else None
         self._init_state = state
 
     def load_init_state(self, state: dict):
         """Install an init state made elsewhere (see ``utils.interop``):
-        keys ``A``, ``d``, ``e``, ``norm_A`` and ``factor`` = {"op", "s"}."""
+        keys ``A`` (a tensor, or a SparseMatrix for a sparse solver), ``d``,
+        ``e``, ``norm_A`` and ``factor`` = {"op", "s"} ({"s"} for CGLS)."""
         A = state["A"]
         if tuple(A.shape) != (self.m, self.n):
             raise ValueError(f"init state A has shape {tuple(A.shape)}, "
@@ -153,13 +162,14 @@ class ConeSolver:
         forced on a CPU device, its plain version); see the module note."""
         if not self.use_hsde or self.strategy != "smw" or settings.use_fused is False:
             return False
-        eligible = fused_hsde_eligible(self.dtype, self.Ky, False, settings.use_anderson)
+        eligible = (not self.A.is_sparse and self.projector == "direct"
+                    and fused_hsde_eligible(self.dtype, self.Ky, False, settings.use_anderson))
         if settings.use_fused:
             if not eligible:
                 raise ValueError(
                     "use_fused=True but the cone kernel does not support this problem "
-                    "(needs float32/float64, no anderson, at most 16 contiguous "
-                    "SOC/exponential segments, no SDP)")
+                    "(needs a dense A with the direct projector, float32/float64, no "
+                    "anderson, at most 16 contiguous SOC/exponential segments, no SDP)")
             return True
         return (eligible and self.device.type == "cuda"
                 and polish_plan(self.Ky, self.m, self.n, settings.polish) is None)
@@ -234,7 +244,10 @@ class ConeSolver:
         A, d, e = st["A"], st["d"], st["e"]
         m, n = self.m, self.n
         b_s, c_s = b_orig * d, c_orig * e
-        fac = self.smw_factor(b_s, c_s) if self.strategy == "smw" else None
+        # The cached Gram inverse serves SMW; without it (the CGLS projector)
+        # hsde_solve factors I + AᵀA itself.
+        fac = (self.smw_factor(b_s, c_s)
+               if self.strategy == "smw" and self.projector == "direct" else None)
         if self.uses_kernel(settings):
             out = fused_hsde_solve(A, b_s, c_s, self.Ky, st["factor"]["op"], fac["t_x"],
                                    fac["t_y"], fac["s_den"], settings.abs_tol,
@@ -252,7 +265,7 @@ class ConeSolver:
         tau_safe = torch.where(tau_ok, tau, torch.ones_like(tau))
         x_s = w[:n] / tau_safe
         y_s = w[n:n + m] / tau_safe
-        s_orig = (b_s - torch.mv(A, x_s)) / d
+        s_orig = (b_s - matvecs(A)[0](x_s)) / d
         x = torch.where(tau_ok, x_s * e, w[:n] * e)
         y = torch.where(tau_ok, b_orig - s_orig, torch.zeros_like(s_orig))
         nu = torch.where(tau_ok, y_s * d, w[n:n + m] * d)
@@ -280,10 +293,13 @@ class ConeSolver:
         def eval_fn(x12, y12):
             return torch.dot(c_n, x12) / c_scale
 
-        projector = DirectProjector("inverse")
+        if self.projector == "direct":
+            projector = DirectProjector("inverse")
+        else:
+            projector = CglsProjector(settings.cgls_max_iter)
 
         def project_fn(px, py, tol, x_warm):
-            return projector.project(A, st["factor"], px, py)
+            return projector.project(A, st["factor"], px, py, tol, x_warm)
 
         z0 = torch.zeros(m + n, dtype=self.dtype, device=self.device)
         out = admm_loop(A, st["norm_A"], d, e, prox_fn, eval_fn, project_fn,

@@ -5,8 +5,12 @@ and PogsImplementation): init equilibrates A, estimates ‖A‖₂ and factors
 the projector once per matrix; each ``solve`` scales the objective, runs the
 ADMM loop (the fused CUDA kernel where eligible, else the eager loop),
 unscales the result, and keeps the final iterate and ρ as the implicit warm
-start of the next solve.  A solve syncs with the host once, to read its
-status.
+start of the next solve.  A solve with the direct projector syncs with the
+host once, to read its status.
+
+A sparse A (a scipy matrix, or a torch tensor in a sparse layout) stays a
+:class:`SparseMatrix` and takes the CGLS projector in the eager loop, or is
+densified first (``sparse_policy``, :func:`densify_sparse`).
 """
 
 from __future__ import annotations
@@ -28,18 +32,46 @@ from pogs_tpu_torch.types import (
 )
 from pogs_tpu_torch.prox.vector import prox_eval, func_eval, scale_f, scale_g
 from pogs_tpu_torch.linalg.equil import equilibrate
-from pogs_tpu_torch.linalg.matrix import DenseMatrix
+from pogs_tpu_torch.linalg.matrix import (
+    DenseMatrix, as_matrix_op, input_dtype, is_sparse_input, matvecs,
+)
 from pogs_tpu_torch.linalg.norm import norm2_est
 from pogs_tpu_torch.projector.direct import DirectProjector
+from pogs_tpu_torch.projector.indirect import CglsProjector
 from pogs_tpu_torch.solver.admm import admm_loop, postsolve_verify
 from pogs_tpu_torch.ops.fused_admm import fused_admm_loop, fused_admm_supported
 from pogs_tpu_torch.utils.precision import highest_precision
 
 
-def _is_sparse(A) -> bool:
-    if isinstance(A, torch.Tensor):
-        return A.layout != torch.strided
-    return hasattr(A, "tocoo") or (hasattr(A, "todense") and not isinstance(A, np.ndarray))
+# The dense size up to which sparse_policy="auto" densifies on a CUDA device.
+DENSIFY_BYTES = 1 << 30
+SPARSE_POLICIES = ("auto", "keep", "densify")
+
+
+def densify_sparse(policy: str, shape, itemsize: int, device) -> bool:
+    """Whether a sparse A of ``shape`` is solved dense: always for
+    ``"densify"``, never for ``"keep"``; for ``"auto"`` on a CUDA device when
+    the dense A fits ``DENSIFY_BYTES`` (one K1 launch against the eager loop
+    with an inner CGLS), and never on the CPU, as the JAX package on a CPU
+    backend."""
+    if policy not in SPARSE_POLICIES:
+        raise ValueError(f"unknown sparse_policy {policy!r}")
+    if policy != "auto":
+        return policy == "densify"
+    m, n = shape
+    return torch.device(device).type == "cuda" and m * n * itemsize <= DENSIFY_BYTES
+
+
+def matrix_operator(A, dtype, device, sparse_policy: str):
+    """A as the operator a solver keeps: a SparseMatrix, or a DenseMatrix
+    (a sparse A densified on the device where :func:`densify_sparse` says)."""
+    sparse = is_sparse_input(A)
+    if sparse and not densify_sparse(sparse_policy, A.shape, dtype.itemsize, device):
+        return as_matrix_op(A, dtype, device)
+    if sparse:
+        return DenseMatrix(as_matrix_op(A, dtype, device).to_dense())
+    A_t = A if isinstance(A, torch.Tensor) else torch.as_tensor(np.asarray(A))
+    return DenseMatrix(A_t.to(device=device, dtype=dtype))
 
 
 def resolve_device(A, device=None) -> torch.device:
@@ -51,14 +83,17 @@ def resolve_device(A, device=None) -> torch.device:
     return torch.device("cuda")
 
 
-def _use_fused(dtype, device, settings: SolverSettings, direct_method: str) -> bool:
-    """Decide the fused-kernel path for a dense A with the direct projector:
+def _use_fused(dtype, device, settings: SolverSettings, direct_method: str,
+               projector: str = "direct", is_sparse: bool = False) -> bool:
+    """Decide the fused-kernel path: a dense A with the direct projector,
     the inverse method, no anderson / exact-tol / verbose > 1, f32 or f64,
     on CUDA."""
     if settings.use_fused is False:
         return False
     supported = (
-        direct_method == "inverse"
+        not is_sparse
+        and projector == "direct"
+        and direct_method == "inverse"
         and fused_admm_supported(settings)
         and dtype in (torch.float32, torch.float64)
     )
@@ -66,7 +101,7 @@ def _use_fused(dtype, device, settings: SolverSettings, direct_method: str) -> b
         if not supported:
             raise ValueError(
                 "use_fused=True but the fused path does not support this "
-                "problem (needs the direct/inverse projector, "
+                "problem (needs a dense A, the direct/inverse projector, "
                 "no anderson/exact-tol/verbose>1)"
             )
         return True
@@ -89,21 +124,19 @@ class GraphFormSolver:
         dtype=None,
         settings: Optional[SolverSettings] = None,
         device=None,
+        sparse_policy: str = "auto",
     ):
-        if _is_sparse(A):
-            raise NotImplementedError("sparse matrices are not ported yet")
-        if projector != "direct":
-            raise NotImplementedError(f"projector {projector!r} is not ported yet")
+        if projector not in ("direct", "cgls"):
+            raise ValueError(f"unknown projector {projector!r}")
         if direct_method not in ("inverse", "cholesky"):
             raise ValueError(f"unknown direct method {direct_method!r}")
         self.device = resolve_device(A, device)
-        A_t = A if isinstance(A, torch.Tensor) else torch.as_tensor(np.asarray(A))
-        if dtype is None:
-            # float64 input gives a float64 solve, anything else float32.
-            dtype = torch.float64 if A_t.dtype == torch.float64 else torch.float32
-        self.dtype = _torch_dtype(dtype)
-        self.A = DenseMatrix(A_t.to(device=self.device, dtype=self.dtype))
+        self.dtype = input_dtype(A) if dtype is None else _torch_dtype(dtype)
+        self.A = matrix_operator(A, self.dtype, self.device, sparse_policy)
         self.m, self.n = self.A.shape
+        if self.A.is_sparse:
+            # A sparse A pairs with the CGLS projector, as in the reference.
+            projector = "cgls"
         self.projector = projector
         self.direct_method = direct_method
         self.settings = settings or SolverSettings()
@@ -121,24 +154,32 @@ class GraphFormSolver:
             with highest_precision():
                 eq = equilibrate(self.A)
                 norm_A = norm2_est(eq.A)
-                factor = DirectProjector(self.direct_method).init(eq.A, s=1.0)
-            self._set_init_state({"A": eq.A.dense(), "d": eq.d, "e": eq.e,
-                                  "norm_A": norm_A, "factor": factor})
+                factor = self._projector(self.settings).init(eq.A, s=1.0)
+            self._set_init_state({"A": eq.A if eq.A.is_sparse else eq.A.dense(),
+                                  "d": eq.d, "e": eq.e, "norm_A": norm_A, "factor": factor})
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.init_time = time.perf_counter() - t0
         return self
 
+    def _projector(self, settings: SolverSettings):
+        if self.projector == "cgls":
+            return CglsProjector(settings.cgls_max_iter)
+        return DirectProjector(self.direct_method)
+
     def _set_init_state(self, state: dict):
         A = state["A"]
         state = dict(state)
         # The fused kernel reads Aᵀ as a row-major copy; keep it with A.
-        state["At"] = A.T.contiguous() if self.direct_method == "inverse" else None
+        kernel_ready = (self.projector == "direct" and self.direct_method == "inverse"
+                        and isinstance(A, torch.Tensor))
+        state["At"] = A.T.contiguous() if kernel_ready else None
         self._init_state = state
 
     def load_init_state(self, state: dict):
         """Install an init state made elsewhere (see ``utils.interop``):
-        keys ``A``, ``d``, ``e``, ``norm_A`` and ``factor`` = {"op", "s"}."""
+        keys ``A`` (a tensor, or a SparseMatrix for a sparse solver), ``d``,
+        ``e``, ``norm_A`` and ``factor`` = {"op", "s"} ({"s"} for CGLS)."""
         A = state["A"]
         if tuple(A.shape) != (self.m, self.n):
             raise ValueError(f"init state A has shape {tuple(A.shape)}, "
@@ -187,13 +228,15 @@ class GraphFormSolver:
         self.init()
 
         rho0 = float(rho if rho is not None else self.rho)
-        fused = _use_fused(self.dtype, self.device, settings, self.direct_method)
+        fused = _use_fused(self.dtype, self.device, settings, self.direct_method,
+                           self.projector, self.A.is_sparse)
 
         if settings.verbose > 0:
             print(
                 "---------------------------------------------------------\n"
                 " pogs_tpu_torch — graph-form ADMM\n"
-                f"   A: {self.m} x {self.n} (dense, {self.dtype}, {self.device}), "
+                f"   A: {self.m} x {self.n} "
+                f"({'sparse' if self.A.is_sparse else 'dense'}, {self.dtype}, {self.device}), "
                 f"projector: {self.projector}"
                 f"{' [fused kernel]' if fused else ''}\n"
                 f"   abs_tol {settings.abs_tol:g}, rel_tol {settings.rel_tol:g}, "
@@ -254,12 +297,13 @@ class GraphFormSolver:
             z0 = torch.zeros(m + n, dtype=dt, device=dev)
             zt0 = torch.zeros(m + n, dtype=dt, device=dev)
         # Warm start from (x0, nu0) (pogs.cpp:143-156).
+        amv, armv = matvecs(A)
         if x_init is not None:
             xs = torch.as_tensor(x_init).to(device=dev, dtype=dt) / e
-            z0 = torch.cat([xs, torch.mv(A, xs)])
+            z0 = torch.cat([xs, amv(xs)])
         if nu_init is not None:
             nus = torch.as_tensor(nu_init).to(device=dev, dtype=dt) / d
-            zt0 = torch.cat([torch.mv(A.T, nus), -nus]) / rho0
+            zt0 = torch.cat([armv(nus), -nus]) / rho0
 
         if fused:
             out = fused_admm_loop(
@@ -267,7 +311,7 @@ class GraphFormSolver:
                 g.h, tuple(g_s.params), settings, z0, zt0, rho0, At=st["At"],
             )
         else:
-            projector = DirectProjector(self.direct_method)
+            projector = self._projector(settings)
 
             def prox_fn(x_in, y_in, rho):
                 return prox_eval(g_s, x_in, rho), prox_eval(f_s, y_in, rho)
@@ -301,8 +345,10 @@ def admm_solve(
     g: FunctionVector,
     settings: Optional[SolverSettings] = None,
     device=None,
+    sparse_policy: str = "auto",
     **kw,
 ) -> SolverResult:
     """One-shot functional front end: solve min f(y) + g(x) s.t. y = Ax."""
-    solver = GraphFormSolver(A, settings=settings, device=device)
+    solver = GraphFormSolver(A, settings=settings, device=device,
+                             sparse_policy=sparse_policy)
     return solver.solve(f, g, **kw)

@@ -21,19 +21,25 @@ Linear solvers for (I + Q) w = u, each factored once:
                  (I + AᵀA)⁻¹ (or a caller's ``apply``, e.g. Woodbury through
                  the m×m inverse of a wide A);
   * ``direct`` — Cholesky of the normal equations MᵀM + δI (M = I + Q) with
-                 two refinement steps, for small embeddings.
-The matrix-free ``cg`` strategy serves sparse and CGLS problems, which come
-with the sparse slice of the port; it raises ``NotImplementedError``.
+                 two refinement steps, for small embeddings;
+  * ``cg``     — Jacobi-preconditioned CG on the normal equations, on split
+                 (x, y, τ) tuples, with a residual-tied tolerance and one
+                 refinement pass; matrix-free (A's products only), so it
+                 serves a sparse A.  The host reads its done flag every
+                 ``cgls.CHECK_EVERY`` iterations.
 
-The loop keeps no host in it: the state freezes once ``done`` is set
+The DR loop keeps no host in it: the state freezes once ``done`` is set
 (``torch.where``), the host reads ``done`` once per check (every 10
 iterations), and both branches of the τ test are evaluated and the right
 one selected.  The host knows the iteration number, which equals the
 device's ``k`` until ``done``, so the check runs only on its own
 iterations.  The interior-point polish (``polish=True``) runs a Mehrotra
-predictor–corrector burst every 250 iterations (1000 beyond the standard
-size caps) on separable-only tall LPs, and adopts the point only if it
-passes the full convergence test.
+predictor–corrector burst on separable-only tall LPs, and adopts the point
+only if it passes the full convergence test (``polish_plan``): every 250
+iterations with Cholesky Newton solves within the standard size caps
+(a sparse A densified for the polish only, up to 256 MiB), every 1000
+beyond them (the XL caps), and beyond those, on inequality-only LPs, every
+2000 with the Newton systems solved matrix-free by Jacobi-PCG on AᵀDA.
 
 This loop with ``strategy="smw"`` and no polish is the plain version of the
 CUDA cone kernel (``ops/fused_hsde.py``).
@@ -47,6 +53,8 @@ import torch
 
 from pogs_tpu_torch.types import Status
 from pogs_tpu_torch.cones.sets import ConeSet
+from pogs_tpu_torch.linalg.cgls import CHECK_EVERY, run_frozen
+from pogs_tpu_torch.linalg.matrix import matvecs
 from pogs_tpu_torch.solver.anderson import anderson_init, anderson_step
 
 K_ALPHA_MIN = 1.0
@@ -69,12 +77,16 @@ K_POLISH_XL_MAX_N = 8192
 K_POLISH_XL_MAX_M = 120_000
 K_POLISH_XL_EVERY = 1000
 K_POLISH_XL_STEPS = 6
-# Beyond the XL caps the JAX package polishes matrix-free (Jacobi-PCG on
-# A'DA), which comes with the sparse slice.
+# Beyond the XL caps, inequality-only LPs polish matrix-free (Jacobi-PCG on
+# AᵀDA + δI; Zero rows carry a barrier weight the Krylov solver cannot
+# absorb).
 K_POLISH_CG_MAX_N = 50_000
 K_POLISH_CG_MAX_M = 400_000
-
-_SPARSE_SLICE = "slice 3 (sparse and indirect)"
+K_POLISH_CG_EVERY = 2000
+K_POLISH_CG_STEPS = 6
+K_POLISH_CG_ITERS = 800
+# The dense size up to which a sparse A is densified for the Cholesky polish.
+K_POLISH_DENSIFY_BYTES = 256 * 2**20
 
 
 def _nrm(v):
@@ -91,7 +103,7 @@ def _dense(A):
 
 def make_q_matvec(A, b, c):
     """Q [x;y;τ] = [Aᵀy + cτ; −Ax + bτ; −cᵀx − bᵀy] and Qᵀ, packed form."""
-    m, n = _dense(A).shape
+    m, n = A.shape
     q, qt = _q_apply_split(A, b, c)
 
     def q_matvec(u):
@@ -106,15 +118,16 @@ def make_q_matvec(A, b, c):
 
 
 def _q_apply_split(A, b, c):
-    """Split-form Q and Qᵀ: (x, y, τ) → (x', y', τ')."""
-    Ad = _dense(A)
+    """Split-form Q and Qᵀ: (x, y, τ) → (x', y', τ'); A a tensor or an
+    operator."""
+    amv, armv = matvecs(A)
 
     def q(x, y, tau):
-        return (torch.mv(Ad.T, y) + c * tau, -torch.mv(Ad, x) + b * tau,
+        return (armv(y) + c * tau, -amv(x) + b * tau,
                 -torch.dot(c, x) - torch.dot(b, y))
 
     def qt(x, y, tau):
-        return (-torch.mv(Ad.T, y) - c * tau, torch.mv(Ad, x) - b * tau,
+        return (-armv(y) - c * tau, amv(x) - b * tau,
                 torch.dot(c, x) + torch.dot(b, y))
 
     return q, qt
@@ -138,10 +151,10 @@ def smw_setup(A, b, c):
 def _smw_solve_split(factor, A, b, c, ux, uy, ut):
     """(I + Q)⁻¹ u by SMW back-substitution, split form.  ``factor`` may
     carry an ``apply`` callable for (I + AᵀA)⁻¹."""
-    Ad = _dense(A)
+    amv, armv = matvecs(A)
     apply_kinv = factor.get("apply") or (lambda v: torch.mv(factor["Kinv"], v))
-    p_x = apply_kinv(ux - torch.mv(Ad.T, uy))
-    p_y = uy + torch.mv(Ad, p_x)
+    p_x = apply_kinv(ux - armv(uy))
+    p_y = uy + amv(p_x)
     h_dot_p = torch.dot(c, p_x) + torch.dot(b, p_y)
     u_tau = (ut + h_dot_p) / factor["s_den"]
     return p_x - factor["t_x"] * u_tau, p_y - factor["t_y"] * u_tau, u_tau
@@ -149,7 +162,7 @@ def _smw_solve_split(factor, A, b, c, ux, uy, ut):
 
 def smw_solve(factor, A, b, c, u):
     """Packed-vector wrapper around the split SMW solve."""
-    m, n = _dense(A).shape
+    m, n = A.shape
     wx, wy, wt = _smw_solve_split(factor, A, b, c, u[:n], u[n:n + m], u[n + m])
     return torch.cat([wx, wy, wt[None]])
 
@@ -169,22 +182,140 @@ def dense_q(A, b, c):
     return M
 
 
-def polish_plan(Ky: ConeSet, m: int, n: int, polish: bool):
-    """(start, every, steps) of the interior-point polish ``hsde_solve`` runs
-    on this problem, or None: it runs with polish on, only Zero / NonNeg /
-    NonPos cones, m ≥ n, and within the Cholesky variant's size caps.
-    Beyond them, where the JAX package polishes matrix-free, this raises."""
+def jacobi_inv_diag_split(A, b, c):
+    """Jacobi preconditioner diag((I+Q)ᵀ(I+Q))⁻¹ as split (x, y, τ) parts,
+    from A's squared products (an operator) or its squares (a tensor)."""
+    m, n = A.shape
+    if hasattr(A, "sq_rmv"):
+        col_a = A.sq_rmv(torch.ones(m, dtype=A.dtype, device=A.device))
+        row_a = A.sq_mv(torch.ones(n, dtype=A.dtype, device=A.device))
+    else:
+        col_a = torch.sum(A * A, dim=0)
+        row_a = torch.sum(A * A, dim=1)
+    dx = 1.0 + col_a + c * c
+    dy = 1.0 + row_a + b * b
+    dtau = 1.0 + torch.dot(c, c) + torch.dot(b, b)
+    return (1.0 / torch.clamp(dx, min=1e-8), 1.0 / torch.clamp(dy, min=1e-8),
+            1.0 / torch.clamp(dtau, min=1e-8))
+
+
+# Split (x, y, τ) tuple arithmetic for the CG; τ is a 0-d tensor.
+
+def _t_add(a, b):
+    return tuple(x + y for x, y in zip(a, b))
+
+
+def _t_sub(a, b):
+    return tuple(x - y for x, y in zip(a, b))
+
+
+def _t_scale(s, a):
+    return tuple(s * x for x in a)
+
+
+def _t_mul(a, b):
+    return tuple(x * y for x, y in zip(a, b))
+
+
+def _t_vdot(a, b):
+    return sum(torch.dot(x, y) if x.dim() else x * y for x, y in zip(a, b))
+
+
+def _t_norm(a):
+    return torch.sqrt(sum(torch.sum(x * x) for x in a))
+
+
+def cg_solve_normal_split(q, qt, inv_diag, u, x0, tol, max_iter: int):
+    """PCG on (I+Q)ᵀ(I+Q) w = (I+Q)ᵀ u, every vector a split (x, y, τ)
+    tuple.  ``cg_solve_normal_split.iterations`` counts the iterations the
+    solves needed, ``.steps`` those they ran (``run_frozen``)."""
+    def normal(v):
+        t = _t_add(v, q(*v))
+        return _t_add(t, qt(*t))
+
+    rhs = _t_add(u, qt(*u))
+    r = _t_sub(rhs, normal(x0))
+    z = _t_mul(r, inv_diag)
+    rhs_norm = _t_norm(rhs)
+    tiny = torch.full_like(rhs_norm, 1e-20)
+
+    def body(st):
+        p, rz = st["p"], st["rz"]
+        Ap = normal(p)
+        pAp = _t_vdot(p, Ap)
+        alpha = rz / torch.where(torch.abs(pAp) <= 1e-20, tiny, pAp)
+        x = _t_add(st["x"], _t_scale(alpha, p))
+        r = _t_sub(st["r"], _t_scale(alpha, Ap))
+        z = _t_mul(r, inv_diag)
+        rz_new = _t_vdot(r, z)
+        return {"x": x, "r": r, "p": _t_add(z, _t_scale(rz_new / rz, p)), "rz": rz_new,
+                "k": st["k"] + 1, "done": _t_norm(r) <= tol * rhs_norm}
+
+    st = {"x": tuple(x0), "r": r, "p": z, "rz": _t_vdot(r, z),
+          "k": torch.zeros((), dtype=torch.int32, device=rhs_norm.device),
+          "done": rhs_norm == 0}
+    if max_iter > 0:
+        st = run_frozen(body, st, max_iter, CHECK_EVERY, cg_solve_normal_split)
+    return st["x"]
+
+
+cg_solve_normal_split.iterations = 0
+cg_solve_normal_split.steps = 0
+
+
+def pcg_psd(matvec, inv_diag, rhs, x0, tol, max_iter: int):
+    """Jacobi-preconditioned CG on an SPD system, as the matrix-free polish
+    uses it (A'DA + δI applied as two A-passes): stops at ‖r‖ ≤ tol·‖rhs‖,
+    at a non-positive curvature, or at the budget, whose truncated answer
+    the polish's acceptance test judges."""
+    rhs_norm = torch.linalg.vector_norm(rhs)
+    stop = tol * rhs_norm
+    r0 = rhs - matvec(x0)
+    z0 = inv_diag * r0
+    one = torch.ones_like(rhs_norm)
+
+    def body(st):
+        p, rz = st["p"], st["rz"]
+        Ap = matvec(p)
+        denom = torch.dot(p, Ap)
+        pos = denom > 0
+        alpha = torch.where(pos, rz / torch.where(pos, denom, one), torch.zeros_like(rz))
+        x = st["x"] + alpha * p
+        r = st["r"] - alpha * Ap
+        z = inv_diag * r
+        rz_new = torch.dot(r, z)
+        beta = rz_new / torch.where(rz > 0, rz, one)
+        return {"x": x, "r": r, "p": z + beta * p, "rz": rz_new, "k": st["k"] + 1,
+                "done": (torch.linalg.vector_norm(r) <= stop) | (denom <= 0)}
+
+    st = {"x": x0, "r": r0, "p": z0, "rz": torch.dot(r0, z0),
+          "k": torch.zeros((), dtype=torch.int32, device=rhs.device), "done": rhs_norm == 0}
+    st = run_frozen(body, st, max_iter, CHECK_EVERY, pcg_psd)
+    return st["x"]
+
+
+pcg_psd.iterations = 0
+pcg_psd.steps = 0
+
+
+def polish_plan(Ky: ConeSet, m: int, n: int, polish: bool, sparse: bool = False,
+                itemsize: int = 8):
+    """(start, every, steps, mode) of the interior-point polish ``hsde_solve``
+    runs on this problem, or None.  It runs with polish on, only Zero /
+    NonNeg / NonPos cones and m ≥ n: ``"chol"`` (dense Newton solves) within
+    the standard caps, or on the XL cadence within the XL caps, where A is
+    dense or a sparse A's dense form fits ``K_POLISH_DENSIFY_BYTES``;
+    ``"cg"`` (matrix-free) beyond, on inequality-only LPs within the CG caps."""
     if not (polish and Ky.is_separable_only and m >= n):
         return None
-    if m <= K_POLISH_MAX_M and n <= K_POLISH_MAX_N:
-        return K_POLISH_START, K_POLISH_EVERY, K_POLISH_IPM_STEPS
-    if m <= K_POLISH_XL_MAX_M and n <= K_POLISH_XL_MAX_N:
-        return K_POLISH_XL_EVERY, K_POLISH_XL_EVERY, K_POLISH_XL_STEPS
+    dense_ok = not sparse or m * n * itemsize <= K_POLISH_DENSIFY_BYTES
+    if dense_ok and m <= K_POLISH_MAX_M and n <= K_POLISH_MAX_N:
+        return K_POLISH_START, K_POLISH_EVERY, K_POLISH_IPM_STEPS, "chol"
+    if dense_ok and m <= K_POLISH_XL_MAX_M and n <= K_POLISH_XL_MAX_N:
+        return K_POLISH_XL_EVERY, K_POLISH_XL_EVERY, K_POLISH_XL_STEPS, "chol"
     z_m, _, _ = Ky.separable_masks()
     if not z_m.any() and m <= K_POLISH_CG_MAX_M and n <= K_POLISH_CG_MAX_N:
-        raise NotImplementedError(
-            f"the matrix-free polish for a {m}x{n} LP comes with {_SPARSE_SLICE}; "
-            "pass polish=False")
+        return K_POLISH_CG_EVERY, K_POLISH_CG_EVERY, K_POLISH_CG_STEPS, "cg"
     return None
 
 
@@ -192,24 +323,51 @@ def _make_polish(A, b, c, Ky, Ky_dual, plan, abs_tol, rel_tol, sqm, sqn, b_norm,
     """The polish burst: from the DR point (x_s, y_s, s_s), ``steps`` damped
     Mehrotra predictor–corrector steps on the LP in the sign-flipped space
     where every inequality row is NonNeg (Zero rows carry a large barrier
-    weight, free rows weight 0).  Returns (ok, x, y, r_pri, r_dua, gap)."""
-    Ad = _dense(A)
-    m, n = Ad.shape
-    dt, dev = Ad.dtype, Ad.device
-    _, _, steps = plan
+    weight, free rows weight 0).  The Newton systems AᵀDA + δI are solved by
+    Cholesky (``"chol"``; a sparse A densified here, once) or by Jacobi-PCG
+    through A's products (``"cg"``).  Returns (ok, x, y, r_pri, r_dua, gap)."""
+    m, n = A.shape
+    dt, dev = A.dtype, A.device
+    amv, armv = matvecs(A)
+    _, _, steps, mode = plan
     z_m, nn_m, np_m = Ky.separable_masks()
     p_zero = torch.as_tensor(z_m, device=dev)
     p_ineq = torch.as_tensor(nn_m | np_m, device=dev)
     p_sgn = torch.where(torch.as_tensor(np_m, device=dev),
                         torch.tensor(-1.0, dtype=dt, device=dev),
                         torch.tensor(1.0, dtype=dt, device=dev))
-    Af = Ad * p_sgn[:, None]
     p_delta = 1e-7 if dt == torch.float32 else 1e-13
-    eye_delta = p_delta * torch.eye(n, dtype=dt, device=dev)
     tiny = 1e-30
+    sparse = getattr(A, "is_sparse", False)
+    if mode == "cg" and sparse:
+        Af_op = A.scale(p_sgn, torch.ones(n, dtype=dt, device=dev))
+        af_mv, af_rmv, af_sq_rmv = Af_op.mv, Af_op.rmv, Af_op.sq_rmv
+    else:
+        # A sparse A is densified here, once, for the Cholesky burst.
+        Af = (A.to_dense() if sparse else _dense(A)) * p_sgn[:, None]
+        af_mv, af_rmv = matvecs(Af)
+
+        def af_sq_rmv(Dv):
+            return torch.einsum("i,ij,ij->j", Dv, Af, Af)
     zero_m = torch.zeros(m, dtype=dt, device=dev)
     one_m = torch.ones(m, dtype=dt, device=dev)
     m_i = max(float((nn_m | np_m).sum()), 1.0)
+
+    def normal_solver(D):
+        """rhs, dx0 → the Newton step dx of (AᵀDA + δI) dx = rhs."""
+        if mode == "chol":
+            Lm, info = torch.linalg.cholesky_ex(
+                Af.T @ (D[:, None] * Af) + p_delta * torch.eye(n, dtype=dt, device=dev))
+            # A failed factorisation gives NaN, as in the JAX package, and the
+            # burst's acceptance test rejects it.
+            Lm = torch.where(info == 0, Lm, torch.full_like(Lm, float("nan")))
+            return lambda rhs, dx0: torch.cholesky_solve(rhs[:, None], Lm)[:, 0]
+        inv_jac = 1.0 / torch.clamp(af_sq_rmv(D) + p_delta, min=tiny)
+
+        def nmv(v):
+            return af_rmv(D * af_mv(v)) + p_delta * v
+
+        return lambda rhs, dx0: pcg_psd(nmv, inv_jac, rhs, dx0, 1e-10, K_POLISH_CG_ITERS)
 
     def ipm_step(x, y, s):
         mu = torch.dot(torch.where(p_ineq, s, zero_m), torch.where(p_ineq, y, zero_m)) / m_i
@@ -218,19 +376,16 @@ def _make_polish(A, b, c, Ky, Ky_dual, plan, abs_tol, rel_tol, sqm, sqn, b_norm,
         D_i = torch.where(p_ineq, y_safe / s_safe, zero_m)
         DZ = torch.clamp(1e4 * torch.max(D_i), min=1e8)
         D = torch.where(p_zero, DZ, D_i)
-        Lm, info = torch.linalg.cholesky_ex(Af.T @ (D[:, None] * Af) + eye_delta)
-        # A failed factorisation gives NaN, as in the JAX package, and the
-        # burst's acceptance test rejects it.
-        Lm = torch.where(info == 0, Lm, torch.full_like(Lm, float("nan")))
-        r_p = torch.mv(Af, x) + s - p_sgn * b
-        r_d = torch.mv(Af.T, y) + c
+        solve_normal = normal_solver(D)
+        r_p = af_mv(x) + s - p_sgn * b
+        r_d = af_rmv(y) + c
 
-        def newton(sigma_mu):
+        def newton(sigma_mu, dx0):
             r_c = torch.where(p_ineq, s * y - sigma_mu, zero_m)
             rc_y = torch.where(p_ineq, r_c / y_safe, zero_m)
-            rhs = -r_d - torch.mv(Af.T, D * (r_p - rc_y))
-            dx = torch.cholesky_solve(rhs[:, None], Lm)[:, 0]
-            dy = D * (torch.mv(Af, dx) + r_p - rc_y)
+            rhs = -r_d - af_rmv(D * (r_p - rc_y))
+            dx = solve_normal(rhs, dx0)
+            dy = D * (af_mv(dx) + r_p - rc_y)
             ds = torch.where(p_ineq, (-r_c - s * dy) / y_safe, zero_m)
             return dx, dy, ds
 
@@ -240,12 +395,14 @@ def _make_polish(A, b, c, Ky, Ky_dual, plan, abs_tol, rel_tol, sqm, sqn, b_norm,
                             torch.full_like(v, float("inf")))
             return torch.clamp(0.995 * torch.min(r), max=1.0)
 
-        dx, dy, ds = newton(torch.zeros((), dtype=dt, device=dev))
+        dx, dy, ds = newton(torch.zeros((), dtype=dt, device=dev),
+                            torch.zeros(n, dtype=dt, device=dev))
         ap, ad = amax(s, ds), amax(y, dy)
         mu_aff = torch.dot(torch.where(p_ineq, s + ap * ds, zero_m),
                            torch.where(p_ineq, y + ad * dy, zero_m)) / m_i
         sigma = torch.clamp((mu_aff / torch.clamp(mu, min=tiny)) ** 3, 0.0, 1.0)
-        dx, dy, ds = newton(sigma * mu)
+        # The corrector's CG starts from the predictor's step.
+        dx, dy, ds = newton(sigma * mu, dx)
         ap, ad = amax(s, ds), amax(y, dy)
         return x + ap * dx, y + ad * dy, s + ap * ds
 
@@ -258,9 +415,9 @@ def _make_polish(A, b, c, Ky, Ky_dual, plan, abs_tol, rel_tol, sqm, sqn, b_norm,
         for _ in range(steps):
             x, y, s = ipm_step(x, y, s)
         x_p, y_p = x, p_sgn * y
-        s_p = b - torch.mv(Ad, x_p)
+        s_p = b - amv(x_p)
         r_pri = _nrm(s_p - Ky.project(s_p))
-        aty = torch.mv(Ad.T, y_p)
+        aty = armv(y_p)
         r_dua = _nrm(aty + c)
         y_cone = _nrm(y_p - Ky_dual.project(y_p))
         cx, by = torch.dot(c, x_p), torch.dot(b, y_p)
@@ -304,10 +461,10 @@ def hsde_solve(
     if P is not None:
         raise NotImplementedError(
             "a quadratic P in the embedding comes with slice 5 (QP and LP)")
-    Ad = _dense(A)
-    m, n = Ad.shape
-    dt, dev = Ad.dtype, Ad.device
+    m, n = A.shape
+    dt, dev = A.dtype, A.device
     dim = n + m + 1
+    amv, armv = matvecs(A)
     Ky_dual = Ky.dual()
     b = torch.as_tensor(b, dtype=dt, device=dev)
     c = torch.as_tensor(c, dtype=dt, device=dev)
@@ -316,28 +473,43 @@ def hsde_solve(
         return torch.as_tensor(v, dtype=dt, device=dev)
 
     if strategy == "smw":
-        factor = smw_factor if smw_factor is not None else smw_setup(Ad, b, c)
+        factor = smw_factor if smw_factor is not None else smw_setup(A, b, c)
 
-        def lin_solve(ux, uy, ut):
-            return _smw_solve_split(factor, Ad, b, c, ux, uy, ut)
+        def lin_solve(ux, uy, ut, fp_resid):
+            return _smw_solve_split(factor, A, b, c, ux, uy, ut)
     elif strategy in ("direct", "inverse"):
         # Cholesky of G = MᵀM + δI, then two refinement steps against the
         # unregularized MᵀM.
-        M = dense_q(Ad, b, c)
+        M = dense_q(A, b, c)
         delta = (1e-6 if dt == torch.float32 else 1e-12) * dim
         L = torch.linalg.cholesky(M.T @ M + delta * torch.eye(dim, dtype=dt, device=dev))
 
         def solve_G(r):
             return torch.cholesky_solve(r[:, None], L)[:, 0]
 
-        def lin_solve(ux, uy, ut):
+        def lin_solve(ux, uy, ut, fp_resid):
             rhs = torch.mv(M.T, torch.cat([ux, uy, ut[None]]))
             w = solve_G(rhs)
             for _ in range(2):
                 w = w + solve_G(rhs - torch.mv(M.T, torch.mv(M, w)))
             return w[:n], w[n:n + m], w[n + m]
     elif strategy == "cg":
-        raise NotImplementedError(f"the cg strategy comes with {_SPARSE_SLICE}")
+        q_split, qt_split = _q_apply_split(A, b, c)
+        inv_diag = jacobi_inv_diag_split(A, b, c)
+        cg_max = min(20000, 20 * dim)
+
+        def lin_solve(ux, uy, ut, fp_resid):
+            # CG stops at ‖r‖ ≤ tol·‖rhs‖, and the solution's error is about
+            # cond(MᵀM)·tol: with a proportional tolerance alone the DR
+            # residual stalls at that level.  One refinement pass squares the
+            # accuracy (cond·tol²), which restores the contraction.
+            u = (ux, uy, ut)
+            tol = torch.clamp(0.1 * fp_resid / torch.clamp(_t_norm(u), min=1.0), 1e-12, 1e-2)
+            w = cg_solve_normal_split(q_split, qt_split, inv_diag, u, u, tol, cg_max)
+            r = _t_sub(u, _t_add(w, q_split(*w)))
+            zero = tuple(torch.zeros_like(x) for x in u)
+            dw = cg_solve_normal_split(q_split, qt_split, inv_diag, r, zero, tol, cg_max)
+            return _t_add(w, dw)
     else:
         raise ValueError(f"unknown HSDE strategy {strategy!r}")
 
@@ -352,9 +524,10 @@ def hsde_solve(
     cert_tol = abs_t + rel_t
     eps_d = T(1e-12)
 
-    plan = polish_plan(Ky, m, n, polish)
+    plan = polish_plan(Ky, m, n, polish, sparse=bool(getattr(A, "is_sparse", False)),
+                       itemsize=b.element_size())
     burst = None if plan is None else _make_polish(
-        Ad, b, c, Ky, Ky_dual, plan, abs_t, rel_t, sqm, sqn, b_norm, c_norm)
+        A, b, c, Ky, Ky_dual, plan, abs_t, rel_t, sqm, sqn, b_norm, c_norm)
 
     def check(st, it):
         """The residual / certificate test; both τ branches, selected."""
@@ -365,11 +538,11 @@ def hsde_solve(
 
         # τ > 0: the primal, dual and gap test on (x, y) = w / τ.
         x_s, y_s = wx / tau, wy / tau
-        s_s = b - torch.mv(Ad, x_s)
+        s_s = b - amv(x_s)
         r_pri = _nrm(s_s - Ky.project(s_s))
         s_norm = _nrm(s_s)
         r_dua_cone = _nrm(y_s - Ky_dual.project(y_s))
-        aty = torch.mv(Ad.T, y_s)
+        aty = armv(y_s)
         r_dua = _nrm(aty + c)
         eps_pri = sqm * abs_t + rel_t * torch.maximum(b_norm, s_norm)
         eps_dua = sqn * abs_t + rel_t * torch.maximum(_nrm(aty), c_norm)
@@ -389,7 +562,7 @@ def hsde_solve(
         wx_pos, wy_pos = wx, wy
         r_o, d_o, g_o = r_pri, r_dua, gap
         if burst is not None:
-            start, every, _ = plan
+            start, every, _, _ = plan
             if it >= start and it % every == 0 and bool(tau_ok & ~converged & ~st["done"]):
                 ok_p, x_p, y_p, r_pp, r_dp, g_p = burst(x_s, y_s, s_s)
                 wx_pos = torch.where(ok_p, x_p * tau, wx)
@@ -403,8 +576,8 @@ def hsde_solve(
         kappa = -torch.dot(c, wx) - torch.dot(b, wy)
         firm = (kappa > K_KAPPA_TOL) & (st["fp_resid"] <= fp_tol)
         # Unboundedness needs −A x̂ in the recession cone of K_y.
-        ax_dist = Ky.distance(-torch.mv(Ad, wx))
-        aty_norm = _nrm(torch.mv(Ad.T, wy))
+        ax_dist = Ky.distance(-amv(wx))
+        aty_norm = _nrm(armv(wy))
         y_cone = _nrm(wy - Ky_dual.project(wy))
         b_neg = -torch.dot(b, wy)
         c_neg = -torch.dot(c, wx)
@@ -448,7 +621,7 @@ def hsde_solve(
         }
 
     def body(st, it):
-        wx, wy, wt = lin_solve(st["ux"], st["uy"], st["ut"])
+        wx, wy, wt = lin_solve(st["ux"], st["uy"], st["ut"], st["fp_resid"])
         vx, vy, vt = 2.0 * wx - st["ux"], 2.0 * wy - st["uy"], 2.0 * wt - st["ut"]
         # Project: x free, y onto K_y*, τ onto R_+.
         zy = Ky_dual.project(vy)

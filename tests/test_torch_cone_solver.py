@@ -199,18 +199,27 @@ def test_kernel_routing_rule():
         solver(6, 3, [CC(C.SDP, range(6))]).uses_kernel(st.replace(use_fused=True))
     # The polish size caps (m, n only): within them the eager loop polishes;
     # beyond the Cholesky caps with an equality row nothing polishes and the
-    # kernel runs; without one the JAX package polishes matrix-free, which
-    # comes with slice 3, so the solve refuses.
+    # kernel runs; without one the eager loop polishes matrix-free.
     from pogs_tpu_torch.solver.hsde import polish_plan
 
-    assert polish_plan(P.ConeSet(lp, 6), 6, 3, True) == (250, 250, 10)
+    assert polish_plan(P.ConeSet(lp, 6), 6, 3, True) == (250, 250, 10, "chol")
     assert polish_plan(P.ConeSet(lp, 6), 6, 3, False) is None
     m = 130_000
     with_eq = P.ConeSet([CC(C.ZERO, [0]), CC(C.NON_NEG, range(1, m))], m)
     assert polish_plan(with_eq, m, 100, True) is None
-    assert polish_plan(with_eq, 100_000, 100, True) == (1000, 1000, 6)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        polish_plan(P.ConeSet([CC(C.NON_NEG, range(m))], m), m, 100, True)
+    assert polish_plan(with_eq, 100_000, 100, True) == (1000, 1000, 6, "chol")
+    assert polish_plan(P.ConeSet([CC(C.NON_NEG, range(m))], m), m, 100,
+                       True) == (2000, 2000, 6, "cg")
+    # A sparse A never takes the kernel (the cg strategy); forcing it raises.
+    import scipy.sparse as sp
+
+    sparse = P.ConeSolver(sp.csr_matrix(np.ones((6, 3))), Ky=soc, device="cpu",
+                          sparse_policy="keep")
+    sparse.device = torch.device("cuda")
+    assert not sparse.uses_kernel(st)
+    with pytest.raises(ValueError):
+        P.ConeSolver(sp.csr_matrix(np.ones((6, 3))), Ky=soc, device="cpu", strategy="smw",
+                     sparse_policy="keep").uses_kernel(st.replace(use_fused=True))
 
 
 def test_forced_kernel_on_cpu_is_the_plain_loop():
@@ -234,11 +243,12 @@ def test_not_ported_paths_raise():
     s = P.ConeSolver(p["A"], Ky=P.dims_to_cones(p["dims"]), device="cpu")
     with pytest.raises(NotImplementedError, match="slice 5"):
         s.solve(p["b"], p["c"], P=np.eye(p["A"].shape[1]))
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        P.ConeSolver(p["A"], device="cpu", strategy="cg")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        P.ConeSolver(p["A"], device="cpu", projector="cgls")
+    # Slice 3's routes are open: the cg strategy, the CGLS projector, a
+    # sparse A; an unknown projector is refused.
+    assert P.ConeSolver(p["A"], device="cpu", strategy="cg").strategy == "cg"
+    assert P.ConeSolver(p["A"], device="cpu", projector="cgls").projector == "cgls"
     import scipy.sparse as sp
 
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        P.ConeSolver(sp.csr_matrix(p["A"]), device="cpu")
+    assert P.ConeSolver(sp.csr_matrix(p["A"]), device="cpu").A.is_sparse
+    with pytest.raises(ValueError):
+        P.ConeSolver(p["A"], device="cpu", projector="nope")

@@ -479,3 +479,107 @@ def test_cone_solver_launches_the_cone_kernel_once(cuda):
     (A, b, c, cones), _ = _cone_cases()["lp"]
     P.ConeSolver(A, Ky=cones, device=cuda).solve(b, c)
     assert ph.fused_hsde_solve.launches == before[0] + 1
+
+
+# -- slice 3: the sparse route on the card ------------------------------------
+
+def _sparse_lasso():
+    """benchmarks/sparse_bench.py's lasso at 2000×1000, 1% dense."""
+    return _chip_smoke().sparse_lasso_problem(2000, 1000, 0.01)
+
+
+def test_sparse_operator_on_the_card(cuda):
+    """cuSPARSE products of the CSR pair against the CPU operator's."""
+    from pogs_tpu_torch.linalg.matrix import as_matrix_op
+
+    A, _, _ = _chip_smoke().sparse_lasso_problem(3000, 1700, 0.01)
+    rng = np.random.default_rng(0)
+    d, e = torch.tensor(rng.random(3000) + 0.5), torch.tensor(rng.random(1700) + 0.5)
+    x, y = torch.tensor(rng.standard_normal(1700)), torch.tensor(rng.standard_normal(3000))
+    for dtype, tol in ((torch.float64, 1e-12), (torch.float32, 1e-4)):
+        cpu = as_matrix_op(A, dtype).scale(d.to(dtype), e.to(dtype))
+        gpu = as_matrix_op(A, dtype, cuda).scale(d.to(cuda, dtype), e.to(cuda, dtype))
+        assert gpu.M.crow_indices().dtype == torch.int32 and gpu.device.type == "cuda"
+        for name, v in (("mv", x), ("rmv", y), ("sq_mv", x), ("sq_rmv", y)):
+            ref = getattr(cpu, name)(v.to(dtype))
+            got = getattr(gpu, name)(v.to(cuda, dtype)).cpu()
+            torch.testing.assert_close(got, ref, atol=tol * max(1.0, float(ref.abs().max())),
+                                       rtol=0)
+        assert float(gpu.frob2()) == pytest.approx(float(cpu.frob2()), rel=tol)
+
+
+def _lasso_kkt(A, b, lam, x):
+    return _chip_smoke().sparse_kkt(A, b, lam, x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_kept_sparse_lasso_on_the_card(cuda, dtype):
+    """The kept route (CSR + CGLS, eager) on the card against the f64 CPU
+    solve: SUCCESS, the lasso KKT check, objectives within 1e-2 relative
+    (f32) or 1e-6 (f64, iterations within 2), and no kernel launched."""
+    A, b, lam = _sparse_lasso()
+    st = P.SolverSettings(abs_tol=1e-4, rel_tol=1e-4, max_iter=2500)
+    f = P.FunctionVector(P.Function.SQUARE, A.shape[0], b=b)
+    g = P.FunctionVector(P.Function.ABS, A.shape[1], c=lam)
+    before = pf.fused_admm_loop.launches
+    r = P.GraphFormSolver(A, dtype=dtype, device=cuda, sparse_policy="keep").solve(
+        f, g, settings=st)
+    ref = P.GraphFormSolver(A, dtype=torch.float64, device="cpu").solve(f, g, settings=st)
+    assert pf.fused_admm_loop.launches == before
+    assert r.status == ref.status == P.Status.SUCCESS
+    x, x_ref = r.x.double().cpu().numpy(), ref.x.numpy()
+
+    def obj(x):
+        return 0.5 * float(np.sum((A @ x - b) ** 2)) + lam * float(np.abs(x).sum())
+
+    assert _lasso_kkt(A, b, lam, x) < 1e-2
+    rel = 1e-2 if dtype == torch.float32 else 1e-6
+    assert obj(x) == pytest.approx(obj(x_ref), rel=rel)
+    if dtype == torch.float64:
+        assert abs(int(r.final_iter) - int(ref.final_iter)) <= 2
+
+
+def test_auto_route_launches_the_solve_kernel_once(cuda):
+    """sparse_policy="auto" on CUDA densifies a sparse A within the 1 GiB
+    budget: one K1 launch per solve, and the answer of the kept route."""
+    A, b, lam = _sparse_lasso()
+    before = pf.fused_admm_loop.launches
+    r = P.solve_lasso(A, b, lam, dtype=torch.float32)
+    assert pf.fused_admm_loop.launches == before + 1
+    kept = P.solve_lasso(A, b, lam, dtype=torch.float32, sparse_policy="keep")
+    assert pf.fused_admm_loop.launches == before + 1
+    assert r["status"] == kept["status"] == 0
+    assert _lasso_kkt(A, b, lam, r["x"]) < 1e-2
+    assert r["optval"] == pytest.approx(kept["optval"], rel=1e-2)
+
+
+def test_cg_cone_solve_on_the_card(cuda):
+    """A sparse LP kept sparse (the cg strategy, eager) on the card against
+    the same solve on the CPU (f64: the same status, iterations within
+    max(10, 2%), optval within 1e-4 relative) with no K3 launch; densified
+    by the auto rule without polish, one K3 launch, held to its plain
+    version on the CPU at trajectory level (iterations within 2, optval
+    within 1e-6 relative)."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(42)
+    A0 = rng.normal(size=(10, 5))
+    b0 = A0 @ rng.random(5) + rng.random(10)
+    c = rng.normal(size=5)
+    A = sp.csr_matrix(np.vstack([A0, np.eye(5), -np.eye(5)]))
+    b = np.concatenate([b0, 3 * np.ones(5), 3 * np.ones(5)])
+    dims = {"l": A.shape[0]}
+    kw = dict(abs_tol=1e-4, rel_tol=1e-4, max_iter=20000, dtype="float64", polish=False)
+    before = ph.fused_hsde_solve.launches
+    kept = P.solve_cone_problem(c, A, b, dims, sparse_policy="keep", **kw)
+    ref = P.solve_cone_problem(c, A, b, dims, sparse_policy="keep", device="cpu", **kw)
+    assert ph.fused_hsde_solve.launches == before
+    assert kept["status"] == ref["status"] == 0
+    assert abs(kept["iterations"] - ref["iterations"]) <= max(10, 0.02 * ref["iterations"])
+    assert kept["optval"] == pytest.approx(ref["optval"], rel=1e-4)
+    dense = P.solve_cone_problem(c, A, b, dims, **kw)
+    assert ph.fused_hsde_solve.launches == before + 1
+    plain = P.solve_cone_problem(c, A.toarray(), b, dims, device="cpu", use_fused=True, **kw)
+    assert dense["status"] == plain["status"] == 0
+    assert abs(dense["iterations"] - plain["iterations"]) <= 2
+    assert dense["optval"] == pytest.approx(plain["optval"], rel=1e-6)

@@ -265,8 +265,10 @@ def test_strategy_errors():
     A, b, c, cones = _lp()
     _, K = _sets(cones, A.shape[0])
     args = (_t(A, "f64"), _t(b, "f64"), _t(c, "f64"), K)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        hsde_solve(*args, strategy="cg")
+    # The cg strategy runs (slice 3); a quadratic P and an unknown strategy
+    # are refused.
+    out = hsde_solve(*args, strategy="cg", max_iter=20)
+    assert int(out["final_iter"]) == 20 and bool(torch.isfinite(out["w"]).all())
     with pytest.raises(NotImplementedError, match="slice 5"):
         hsde_solve(*args, P=torch.eye(A.shape[1], dtype=torch.float64))
     with pytest.raises(ValueError):

@@ -118,8 +118,11 @@ def test_solver_front_end_contract():
         P.FunctionVector(P.Function.SQUARE, M, b=B0), P.FunctionVector(P.Function.ABS, N, c=LAM),
         settings=P.SolverSettings(use_anderson=True))
     assert r.status == P.Status.SUCCESS
-    with pytest.raises(NotImplementedError):
-        P.GraphFormSolver(torch.eye(3).to_sparse(), device="cpu")
+    # A sparse tensor stays sparse on the CPU and takes the CGLS projector.
+    sparse = P.GraphFormSolver(torch.eye(3, dtype=torch.float64).to_sparse(), device="cpu")
+    assert sparse.A.is_sparse and sparse.projector == "cgls"
+    with pytest.raises(ValueError):
+        P.GraphFormSolver(A0, device="cpu", projector="nope")
     # dtype follows the input: float64 numpy -> float64, float32 -> float32.
     assert P.GraphFormSolver(A0, device="cpu").dtype == torch.float64
     assert P.GraphFormSolver(A0.astype(np.float32), device="cpu").dtype == torch.float32
