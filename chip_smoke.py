@@ -87,8 +87,31 @@ Phases, each printing one JSON line of its own:
      eager) and densified by the auto rule (one K3 launch each, polish
      off), each held to the eager solve of its dense twin; ms per DR
      iteration and PCG steps.
+ 17. the QP main path: CVXQP1_M (benchmarks/maros_meszaros.py, n = 1000,
+     500 equalities, 0.1 ≤ x ≤ 10) in f64 through solve_qp on the card by
+     three routes: the default (the host IPM; whether it certified, its
+     Newton steps and time), the staged HSDE route with the IPM patched
+     out (SUCCESS, optval within 1e-6 of 1.0875115673e6, KKT residuals at
+     the tolerance; K3 launches, segments, DR iterations, and the time in
+     K3, the polish, the eigh, the sub-solver's init and the rest), and
+     polish=False at max_iter 1000 (one K3 launch held to its plain version
+     on the same scaled extension: the same status, iterations within 2, x
+     within 1e-8·max(1, ‖x‖∞)), with K3's plan there;
+ 18. qp_via="admm" on CVXQP1_S and HS21 against their published optima;
+ 19. batched_cone_solve on socp_ball 804x200 f64 with K = 8 perturbed b
+     (8 K3 launches), lanes 0 and 7 against the eager plain version and
+     every lane against a ConeSolver solve of its b; warm_path_cone_solve
+     on lp_ineq 1100x300 f64 over 6 drifting b against cold solves;
+ 20. batched_qp_solve on CVXQP1_S with K = 16 perturbed q and the JAX
+     package's one polish per lane: polished lanes within 1e-6 of a
+     per-lane solve_qp, no rejected lane called SUCCESS, the polished
+     count reported; then the staged single-QP route (IPM patched out) on
+     every lane, SUCCESS within 1e-6, and on lane 0, the lane with the
+     most segments and the unpolished lanes K3 against the plain version
+     (the same status and segment totals);
+ 21. solve_qps on tests/data/HS21.QPS: SUCCESS, objective −99.96.
 Phases 14 to 16 run with the launch counts reset, and must launch K1 and
-K3 (the densified routes).  Then the kernels' summary line, the card's name and power limit, and last
+K3 (the densified routes); so do phases 17 to 21, which must launch K3.  Then the kernels' summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Exits 1 when
@@ -96,7 +119,8 @@ no CUDA device is present.  The bench problem generator is that of
 bench.py (seed 42; A ~ N(0,1); 90%-sparse x_true; λ = 0.1‖Aᵀb‖∞); the cone
 problems come from benchmarks/problems.py and tests/conic_fixtures.py,
 the sparse ones are those of benchmarks/sparse_bench.py and
-benchmarks/real_data_benchmark.py, seeded as there.
+benchmarks/real_data_benchmark.py, seeded as there; the QPs come from
+benchmarks/maros_meszaros.py and tests/data/HS21.QPS.
 """
 
 from __future__ import annotations
@@ -1877,6 +1901,443 @@ def phase_sparse_cone(torch, P):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Slice 5: the QP and LP front ends and the batched cone and QP solves.  The
+# HSDE solves on these paths run through K3 (the epigraph SOC is one
+# segment); the IPM, the eigh of P and the PDAS polish run on the host.
+# ---------------------------------------------------------------------------
+
+CVXQP1_M_OPTVAL = 1.0875115673e6  # benchmarks/maros_meszaros.py:292-294, KKT-certified
+QP_TOL = dict(abs_tol=1e-6, rel_tol=1e-6)  # benchmarks/maros_meszaros.py:380 (solve_with_pogs_tpu)
+
+
+def maros():
+    """benchmarks/maros_meszaros.py (numpy only), loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_smoke_maros", os.path.join(ROOT, "benchmarks", "maros_meszaros.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def qp_kwargs(p):
+    """A maros_meszaros problem dict as solve_qp's arguments: '=' rows as
+    A x = b, '<=' rows as G x ≤ h, '>=' rows negated into G."""
+    eq = [i for i, s in enumerate(p["sense"]) if s == "="]
+    le = [i for i, s in enumerate(p["sense"]) if s != "="]
+    sign = np.array([1.0 if p["sense"][i] == "<=" else -1.0 for i in le])
+    kw = dict(P=p["Q"], q=p["c"], lb=p["lb"], ub=p["ub"])
+    if eq:
+        kw.update(A=p["A"][eq], b=p["rhs"][eq])
+    if le:
+        kw.update(G=sign[:, None] * p["A"][le], h=sign * p["rhs"][le])
+    return kw
+
+
+class K3Recorder:
+    """Inside the block, every K3 launch that ConeSolver or the cone batches
+    make is bracketed by CUDA events, and the arguments and result of the
+    last one are kept (to run the plain version on the same inputs)."""
+
+    def __init__(self, torch):
+        self.torch, self.events, self.last = torch, [], None
+
+    @contextlib.contextmanager
+    def on(self):
+        import pogs_tpu_torch.parallel.batch as batch_mod
+        import pogs_tpu_torch.solver.cone as cone_mod
+
+        inner = cone_mod.fused_hsde_solve
+        torch = self.torch
+
+        def recorded(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*args, **kw)
+            stop.record()
+            self.events.append((start, stop))
+            self.last = (args, kw, out)
+            return out
+
+        with patched(cone_mod, "fused_hsde_solve", recorded), \
+                patched(batch_mod, "fused_hsde_solve", recorded):
+            yield self
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return float(sum(a.elapsed_time(b) for a, b in self.events))
+
+
+@contextlib.contextmanager
+def uncounted():
+    """K3 launches inside the block (comparison runs) leave its count alone."""
+    from pogs_tpu_torch.ops.fused_hsde import fused_hsde_solve
+
+    saved = fused_hsde_solve.launches
+    try:
+        yield
+    finally:
+        fused_hsde_solve.launches = saved
+
+
+@contextlib.contextmanager
+def host_timed(module, name, acc, key, sync=None):
+    """module.<name> wrapped so that its host time adds to acc[key]."""
+    inner = getattr(module, name)
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        out = inner(*args, **kw)
+        if sync is not None:
+            sync()
+        acc[key] = acc.get(key, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    with patched(module, name, timed):
+        yield
+
+
+def kkt_score(P, p, x, lam_split):
+    """qp_polish.kkt_residuals of a solve_qp result on the solver's own
+    lowering (equalities, G rows, finite upper bounds, finite lower bounds)."""
+    from pogs_tpu_torch.solver.qp_polish import kkt_residuals
+
+    kw = qp_kwargs(p)
+    n = len(kw["q"])
+    rows, rhs, kind, lam = [], [], [], []
+    if "A" in kw:
+        rows.append(kw["A"]), rhs.append(kw["b"]), kind.append(np.zeros(len(kw["b"])))
+        lam.append(lam_split["y_eq"])
+    if "G" in kw:
+        rows.append(kw["G"]), rhs.append(kw["h"]), kind.append(np.ones(len(kw["h"])))
+        lam.append(lam_split["z_ineq"])
+    ub, lb = np.flatnonzero(np.isfinite(kw["ub"])), np.flatnonzero(np.isfinite(kw["lb"]))
+    rows.append(np.eye(n)[ub]), rhs.append(kw["ub"][ub]), kind.append(np.ones(ub.size))
+    lam.append(lam_split["z_ub"][ub])
+    rows.append(-np.eye(n)[lb]), rhs.append(-kw["lb"][lb]), kind.append(np.ones(lb.size))
+    lam.append(lam_split["z_lb"][lb])
+    res = kkt_residuals(kw["P"], kw["q"], np.vstack(rows), np.concatenate(rhs),
+                        np.concatenate(kind).astype(np.int8), x, np.concatenate(lam))
+    return {k: float(v) for k, v in res.items()}
+
+
+def phase_qp_main_path(torch, P):
+    """CVXQP1_M (n = 1000, 500 equalities, 0.1 ≤ x ≤ 10) in f64 through
+    solve_qp on the card, three routes: the default (the host IPM first), the
+    staged HSDE route (the IPM patched out: K3 segments of 500 iterations,
+    the PDAS polish after each), and polish=False with max_iter 1000 (one
+    unstaged K3 solve, held to the plain version on the same scaled
+    extension)."""
+    import pogs_tpu_torch.solver.cone as cone_mod
+    from pogs_tpu_torch.ops.fused_hsde import fused_hsde_solve_ref
+
+    p = maros().cvxqp_problem(1, 1000, CVXQP1_M_OPTVAL)
+    kw = qp_kwargs(p)
+    Pm, q = kw.pop("P"), kw.pop("q")
+    run = dict(max_iter=40000, dtype="float64", device="cuda", **QP_TOL)
+    out = {"phase": "qp_main_path", "problem": "CVXQP1_M", "n": len(q)}
+
+    # 1. The default route.
+    k3 = read_counts()["fused_hsde_solve"]
+    t0 = time.perf_counter()
+    r = P.solve_qp(Pm, q, **kw, **run)
+    wall = (time.perf_counter() - t0) * 1e3
+    launched = read_counts()["fused_hsde_solve"] - k3
+    out["default"] = {"status": r["status_name"], "ipm_certified": launched == 0,
+                      "newton_steps": r["iterations"] if launched == 0 else None,
+                      "k3_launches": launched, "ms": wall,
+                      "rel_err": abs(r["optval"] - CVXQP1_M_OPTVAL) / CVXQP1_M_OPTVAL}
+    ok = r["status"] == 0 and out["default"]["rel_err"] <= 1e-6
+
+    # 2. The staged HSDE route, the IPM patched out; the time split.
+    rec, acc = K3Recorder(torch), {}
+    k3 = read_counts()["fused_hsde_solve"]
+    with patched(cone_mod.ConeSolver, "_try_qp_ipm", lambda self, *a: None), rec.on(), \
+            host_timed(cone_mod, "epigraph_factor", acc, "eigh_ms"), \
+            host_timed(cone_mod.ConeSolver, "_polish_qp", acc, "polish_ms"), \
+            host_timed(cone_mod.ConeSolver, "init", acc, "init_ms", torch.cuda.synchronize):
+        t0 = time.perf_counter()
+        r = P.solve_qp(Pm, q, **kw, **run)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launched = read_counts()["fused_hsde_solve"] - k3
+    k3_ms = rec.ms()
+    score = kkt_score(Pm, p, r["x"], r)
+    rel = abs(r["optval"] - CVXQP1_M_OPTVAL) / CVXQP1_M_OPTVAL
+    out["A_ext"] = [r["solver"]._qp_sub.m, r["solver"]._qp_sub.n]
+    out["staged"] = {"status": r["status_name"], "dr_iterations": r["iterations"],
+                     "k3_launches": launched, "segments": len(rec.events), "ms": wall,
+                     "k3_ms": k3_ms, "polish_ms": acc.get("polish_ms", 0.0),
+                     "eigh_ms": acc.get("eigh_ms", 0.0), "init_ms": acc.get("init_ms", 0.0),
+                     "rest_ms": wall - k3_ms - sum(acc.values()),
+                     "rel_err": rel, "kkt": score}
+    ok = (ok and r["status"] == 0 and rel <= 1e-6 and launched >= 1
+          and max(score.values()) <= QP_TOL["abs_tol"])
+
+    # 3. polish=False, max_iter 1000: one K3 solve against its plain version.
+    rec = K3Recorder(torch)
+    k3 = read_counts()["fused_hsde_solve"]
+    with rec.on():
+        t0 = time.perf_counter()
+        r = P.solve_qp(Pm, q, **kw, **dict(run, max_iter=1000, polish=False))
+        wall = (time.perf_counter() - t0) * 1e3
+    launched = read_counts()["fused_hsde_solve"] - k3
+    args, kwargs, out_k = rec.last
+    t0 = time.perf_counter()
+    out_p = fused_hsde_solve_ref(*args[:11], u0=kwargs.get("u0"))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    n_ext = args[0].shape[1]
+    x_k, x_p = (o["w"][:n_ext] / o["w"][-1] for o in (out_k, out_p))
+    x_err = float((x_k - x_p).abs().max())
+    lim = 1e-8 * max(1.0, float(x_p.abs().max()))
+    it_k, it_p = int(out_k["final_iter"]), int(out_p["final_iter"])
+    from pogs_tpu_torch.ops.fused_hsde import launch_plan, _lib, segments
+    plan = launch_plan(_lib(), args[0].device, args[0].dtype, *args[0].shape, segments(args[3]))
+    out["no_polish"] = {"status": r["status_name"], "iterations": r["iterations"],
+                        "k3_launches": launched, "ms": wall, "k3_ms": rec.ms(),
+                        "plain_ms": plain_ms, "kernel_vs_plain": {
+                            "status": [int(out_k["status"]), int(out_p["status"])],
+                            "iters": [it_k, it_p], "x_max_abs_err": x_err, "x_limit": lim},
+                        "blocks": plan["blocks"], "smem": plan["smem"],
+                        "soc_owner": plan["owners"]}
+    ok = (ok and launched == 1 and int(out_k["status"]) == int(out_p["status"])
+          and abs(it_k - it_p) <= 2 and x_err <= lim)
+    out["ok"] = bool(ok)
+    emit(out)
+    if not ok:
+        raise AssertionError("qp main path")
+    return out
+
+
+def phase_qp_admm(torch, P):
+    """qp_via="admm" (the eager graph-form loop with the eigenbasis x-prox,
+    then the PDAS polish) on CVXQP1_S and HS21, against the published
+    optima."""
+    mm = maros()
+    rows = []
+    for p in (mm.cvxqp_problem(1, 100, 1.1590718e4), mm.problems()[0]):
+        kw = qp_kwargs(p)
+        t0 = time.perf_counter()
+        r = P.solve_qp(kw.pop("P"), kw.pop("q"), **kw, qp_via="admm", max_iter=4000,
+                       dtype="float64", device="cuda", **QP_TOL)
+        ms = (time.perf_counter() - t0) * 1e3
+        obj = r["optval"] + p["c0"]
+        rel = abs(obj - p["optval"]) / abs(p["optval"])
+        rec = {"phase": "qp_admm", "problem": p["name"], "status": r["status_name"],
+               "iterations": r["iterations"], "objective": obj, "published": p["optval"],
+               "rel_err": rel, "ms": ms, "ok": r["status"] == 0 and rel <= 1e-6}
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"qp_via=admm on {p['name']}")
+        rows.append(rec)
+    return rows
+
+
+def phase_batched_cone(torch, P):
+    """batched_cone_solve on socp_ball 804x200 f64 with K = 8 perturbed b (8
+    K3 launches): lanes 0 and 7 against the eager plain version, every lane
+    against one ConeSolver solve of its b; warm_path_cone_solve on lp_ineq
+    1100x300 f64 over 6 drifting b against cold solves of the same b."""
+    problems, _ = cone_problems()
+    soc = problems.socp_ball()
+    cones = P.dims_to_cones(soc["dims"])
+    K = 8
+    rng = np.random.default_rng(8)
+    bs = soc["b"][None, :] * (1.0 + 0.02 * rng.standard_normal((K, 1)))
+    st = P.SolverSettings(max_iter=CONE_MAX_ITER, **CONE_TOL)
+    rec_k = K3Recorder(torch)
+    k3 = read_counts()["fused_hsde_solve"]
+    with rec_k.on():
+        t0 = time.perf_counter()
+        out = P.batched_cone_solve(soc["A"], bs, soc["c"], cones, settings=st, device="cuda")
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    launched = read_counts()["fused_hsde_solve"] - k3
+    iters = out["iterations"].cpu().tolist()
+    rec = {"phase": "batched_cone", "problem": "socp_ball", "shape": list(soc["A"].shape),
+           "dtype": "float64", "K": K, "k3_launches": launched, "ms": wall,
+           "k3_ms": rec_k.ms(), "iterations": iters, "status": out["status"].cpu().tolist()}
+    ok = launched == K and all(s == 0 for s in rec["status"])
+    # Lanes 0 and 7 against the eager plain version (the same factor).
+    t0 = time.perf_counter()
+    plain = P.batched_cone_solve(soc["A"], bs[[0, K - 1]], soc["c"], cones,
+                                 settings=st.replace(use_fused=False), device="cuda")
+    torch.cuda.synchronize()
+    rec["plain_ms_2_lanes"] = (time.perf_counter() - t0) * 1e3
+    vs_plain = []
+    for j, k in enumerate((0, K - 1)):
+        x, x_p = out["x"][k], plain["x"][j]
+        err = float((x - x_p).abs().max())
+        lim = 1e-8 * max(1.0, float(x_p.abs().max()))
+        d_it = abs(iters[k] - int(plain["iterations"][j]))
+        vs_plain.append({"lane": k, "iters_plain": int(plain["iterations"][j]),
+                         "x_max_abs_err": err, "x_limit": lim})
+        ok = ok and int(plain["status"][j]) == rec["status"][k] and d_it <= 2 and err <= lim
+    rec["vs_plain"] = vs_plain
+    # Every lane against a single ConeSolver solve of its b (K3 too): a lane
+    # does not depend on K.
+    worst = 0.0
+    for k in range(K):
+        with uncounted():
+            r = P.ConeSolver(soc["A"], Ky=cones, settings=st, device="cuda").solve(
+                bs[k], soc["c"])
+        worst = max(worst, float((r.x - out["x"][k]).abs().max()))
+        ok = ok and int(r.final_iter) == iters[k] and int(r.status) == rec["status"][k]
+    rec["vs_single_solve_x_max_abs_err"] = worst
+    ok = ok and worst <= 1e-9 * max(1.0, float(out["x"].abs().max()))
+
+    # The warm path against cold solves of the same b.
+    lp = problems.lp_ineq()
+    lp_cones = P.dims_to_cones(lp["dims"])
+    drift = lp["b"][None, :] * (1.0 + 2e-3 * np.arange(6)[:, None])
+    k3 = read_counts()["fused_hsde_solve"]
+    t0 = time.perf_counter()
+    warm = P.warm_path_cone_solve(lp["A"], drift, lp["c"], lp_cones, settings=st, device="cuda")
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    launched = read_counts()["fused_hsde_solve"] - k3
+    t0 = time.perf_counter()
+    with uncounted():
+        cold = P.batched_cone_solve(lp["A"], drift, lp["c"], lp_cones, settings=st,
+                                    device="cuda")
+        torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    w_ov, c_ov = warm["optval"].cpu().numpy(), cold["optval"].cpu().numpy()
+    ov_err = float(np.max(np.abs(w_ov - c_ov) / np.maximum(1.0, np.abs(c_ov))))
+    rec["warm_path"] = {"problem": "lp_ineq", "shape": list(lp["A"].shape), "steps": 6,
+                        "k3_launches": launched,
+                        "iterations_warm": warm["iterations"].cpu().tolist(),
+                        "iterations_cold": cold["iterations"].cpu().tolist(),
+                        "ms_warm": warm_ms, "ms_cold": cold_ms, "optval_rel_err": ov_err}
+    ok = (ok and launched == 6
+          and bool((warm["status"] == 0).all()) and bool((cold["status"] == 0).all())
+          and ov_err <= 1e-3)
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("batched cone")
+    return rec
+
+
+def phase_batched_qp(torch, P):
+    """batched_qp_solve on CVXQP1_S with K = 16 perturbed q: the shared
+    epigraph extension, one K3 launch per lane, then the JAX package's one
+    host PDAS polish per lane (tol 1e-5, 5000 iterations).  Polished lanes
+    within 1e-6 of a per-lane solve_qp, no lane the polish rejects called
+    SUCCESS, and the unpolished lanes reported (ROADMAP §3).  Then the
+    staged single-QP route (solve_qp's ConeSolver, the IPM patched out:
+    500-iteration K3 segments, a polish attempt after each) on every lane:
+    SUCCESS within 1e-6 of the per-lane solve_qp; and on lane 0, the lane
+    with the most segments and the unpolished lanes again by the plain
+    version: the warm-started segments give the same status and iteration
+    totals, x within 1e-8."""
+    import pogs_tpu_torch.parallel.batch as batch_mod
+
+    p = maros().cvxqp_problem(1, 100, 1.1590718e4)
+    kw = qp_kwargs(p)
+    A, b = kw["A"], kw["b"]
+    n, m_eq = len(kw["q"]), len(b)
+    # The lowering solve_qp makes: equalities, then x ≤ ub, then −x ≤ −lb.
+    A_bar = np.vstack([A, np.eye(n), -np.eye(n)])
+    b_bar = np.concatenate([b, kw["ub"], -kw["lb"]])
+    m = A_bar.shape[0]
+    Ky = [P.ConeConstraint(P.Cone.ZERO, range(m_eq)),
+          P.ConeConstraint(P.Cone.NON_NEG, range(m_eq, m))]
+    K = 16
+    rng = np.random.default_rng(3)
+    qs = kw["q"][None, :] + 0.1 * rng.standard_normal((K, n))
+    bs = np.broadcast_to(b_bar, (K, m))
+    ref = []
+    for k in range(K):
+        r = P.solve_qp(kw["P"], qs[k], A=A, b=b, lb=kw["lb"], ub=kw["ub"], dtype="float64",
+                       device="cuda", abs_tol=1e-9, rel_tol=1e-9)
+        ref.append(r["optval"] if r["status"] == 0 else float("nan"))
+    ref = np.array(ref)
+    rec = {"phase": "batched_qp", "problem": "CVXQP1_S", "K": K, "A_ext": [m + n + 2, n + 1]}
+    ok = bool(np.all(np.isfinite(ref)))
+    st = P.SolverSettings(abs_tol=1e-5, rel_tol=1e-5, max_iter=5000)
+    rec_k, acc = K3Recorder(torch), {}
+    k3 = read_counts()["fused_hsde_solve"]
+    with rec_k.on(), host_timed(batch_mod, "active_set_polish", acc, "polish_ms"):
+        t0 = time.perf_counter()
+        out = P.batched_qp_solve(A_bar, kw["P"], bs, qs, Ky, settings=st, device="cuda")
+        wall = (time.perf_counter() - t0) * 1e3
+    err = np.abs(out["optval"] - ref) / np.maximum(1.0, np.abs(ref))
+    pol = out["polished"]
+    rec.update({"tol": st.abs_tol, "max_iter": st.max_iter,
+                "k3_launches": read_counts()["fused_hsde_solve"] - k3, "ms": wall,
+                "k3_ms": rec_k.ms(), "polish_ms": acc.get("polish_ms", 0.0),
+                "iterations": np.asarray(out["iterations"]).tolist(),
+                "status": np.asarray(out["status"]).tolist(), "polished": int(pol.sum()),
+                "unpolished_lanes": np.flatnonzero(~pol).tolist(),
+                "optval_rel_err_max_polished": float(err[pol].max(initial=0.0))})
+    # Correct either way: a polished lane at the optimum, and no lane the
+    # polish rejects reported as SUCCESS.
+    ok = (ok and rec["k3_launches"] == K and err[pol].max(initial=0.0) <= 1e-6
+          and bool(np.all(out["status"][~pol] != 0)))
+
+    # Warm-started segments: the staged single-QP route on every lane on K3,
+    # and on the plain version (use_fused=False) for lane 0, the lane with
+    # the most segments and the unpolished lanes.
+    import pogs_tpu_torch.solver.cone as cone_mod
+
+    staged = P.SolverSettings(max_iter=40000, **QP_TOL)
+
+    def staged_solve(k, settings):
+        solver = P.ConeSolver(A_bar, Ky=Ky, dtype=torch.float64, device="cuda")
+        k3 = read_counts()["fused_hsde_solve"]
+        r = solver.solve(bs[k], qs[k], P=kw["P"], settings=settings)
+        return r, read_counts()["fused_hsde_solve"] - k3
+
+    with patched(cone_mod.ConeSolver, "_try_qp_ipm", lambda self, *a: None):
+        t0 = time.perf_counter()
+        runs = [staged_solve(k, staged) for k in range(K)]
+        wall = (time.perf_counter() - t0) * 1e3
+        iters = [int(r.final_iter) for r, _ in runs]
+        err = np.array([abs(float(r.optval) - ref[k]) / max(1.0, abs(ref[k]))
+                        for k, (r, _) in enumerate(runs)])
+        rec["staged_single"] = {
+            "ms": wall, "iterations": iters, "status": [r.status.name for r, _ in runs],
+            "k3_launches": [n_k3 for _, n_k3 in runs],
+            "optval_rel_err_max": float(err.max()), "vs_plain": []}
+        ok = (ok and all(n_k3 >= 1 and r.status == P.Status.SUCCESS for r, n_k3 in runs)
+              and err.max() <= 1e-6)
+        for k in sorted({0, int(np.argmax(iters)), *np.flatnonzero(~pol).tolist()}):
+            (rk, _), (rp, launched_p) = runs[k], staged_solve(k, staged.replace(use_fused=False))
+            x_err = float((rk.x - rp.x).abs().max())
+            lim = 1e-8 * max(1.0, float(rp.x.abs().max()))
+            rec["staged_single"]["vs_plain"].append({
+                "lane": k, "status": [rk.status.name, rp.status.name],
+                "iterations": [iters[k], int(rp.final_iter)], "x_max_abs_err": x_err})
+            ok = (ok and rk.status == rp.status and launched_p == 0
+                  and abs(iters[k] - int(rp.final_iter)) <= 2 and x_err <= lim)
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("batched qp")
+    return rec
+
+
+def phase_qps(torch, P):
+    """solve_qps on tests/data/HS21.QPS: SUCCESS, objective within 1e-6
+    of the published -99.96."""
+    t0 = time.perf_counter()
+    r = P.solve_qps(os.path.join(ROOT, "tests", "data", "HS21.QPS"), device="cuda")
+    ms = (time.perf_counter() - t0) * 1e3
+    rel = abs(r["objective"] - (-99.96)) / 99.96
+    rec = {"phase": "qps", "name": r["name"], "status": r["status_name"],
+           "iterations": r["iterations"], "objective": r["objective"], "rel_err": rel, "ms": ms,
+           "ok": r["status"] == 0 and rel <= 1e-6}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("solve_qps HS21")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -1910,6 +2371,17 @@ def main() -> int:
     emit({"phase": "sparse_path_launches", **sparse_launches})
     if not sparse_launches["fused_admm_loop"] or not sparse_launches["fused_hsde_solve"]:
         raise AssertionError(f"the sparse path launched {sparse_launches}")
+    # Slice 5's path: the QP and LP front ends and the cone batches launch K3.
+    reset_counts()
+    phase_qp_main_path(torch, P)
+    phase_qp_admm(torch, P)
+    phase_batched_cone(torch, P)
+    phase_batched_qp(torch, P)
+    phase_qps(torch, P)
+    qp_launches = read_counts()
+    emit({"phase": "qp_path_launches", **qp_launches})
+    if not qp_launches["fused_hsde_solve"]:
+        raise AssertionError(f"the QP path launched {qp_launches}")
     if "jax" in sys.modules or "pogs_tpu" in sys.modules:
         raise AssertionError("the port imported jax or pogs_tpu")
     # No single PyTorch call computes an ADMM or HSDE solve: library_ms null.
@@ -1947,7 +2419,7 @@ def main() -> int:
         "name": "fused_hsde_solve", "route": "cuda",
         "source": "pogs_tpu_torch/csrc/fused_hsde.cu",
         "replaces": "pogs_tpu/ops/fused_hsde.py:555",
-        "launches": launches_h,
+        "launches": launches_h + qp_launches["fused_hsde_solve"],
         "max_abs_err": summary_h["max_abs_err"],
         "ms": summary_h["ms"], "plain_ms": summary_h["plain_ms"],
         "bound_ms": summary_h["bound_ms"], "bound_by": summary_h["bound_by"],

@@ -8,11 +8,14 @@ problems in *graph form*
 
 by ADMM with closed-form proximal operators, and problems in *cone form*
 
-    minimize    c'x
+    minimize    c'x (+ ½ x'Px)
     subject to  b − A x ∈ K_y,   x ∈ K_x
 
 by Douglas–Rachford on the homogeneous self-dual embedding (K_x empty) or
-by the graph-form loop with the cone objective.  On a CUDA device a dense
+by the graph-form loop with the cone objective; a quadratic objective by
+the host IPM or an epigraph SOC through the embedding, with an active-set
+polish (``solve_qp``, ``solve_lp``, ``solve_qps`` front the QP and LP
+forms).  On a CUDA device a dense
 solve runs as one hand-written CUDA kernel (``ops/fused_admm.py`` for the
 graph form, ``ops/fused_hsde.py`` for the cone form) and a λ-sweep as
 another (``ops/fused_admm_batch.py``); elsewhere they run as eager torch
@@ -43,7 +46,11 @@ from pogs_tpu_torch.api.graph import (
     solve_nonneg_ls,
 )
 from pogs_tpu_torch.solver.cone import ConeSolver
-from pogs_tpu_torch.api.cone import solve_cone, solve_cone_problem, dims_to_cones
+from pogs_tpu_torch.api.cone import solve_cone, solve_cone_problem, dims_to_cones, auto_rho
+from pogs_tpu_torch.api.qp import solve_lp, solve_qp, solve_qps
+from pogs_tpu_torch.parallel.batch import (
+    batched_cone_solve, batched_qp_solve, warm_path_cone_solve,
+)
 from pogs_tpu_torch.utils.interop import init_state_from_numpy
 
 __version__ = "0.1.0"
@@ -75,5 +82,12 @@ __all__ = [
     "solve_cone",
     "solve_cone_problem",
     "dims_to_cones",
+    "auto_rho",
+    "solve_lp",
+    "solve_qp",
+    "solve_qps",
+    "batched_cone_solve",
+    "warm_path_cone_solve",
+    "batched_qp_solve",
     "init_state_from_numpy",
 ]

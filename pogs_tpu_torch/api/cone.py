@@ -3,7 +3,7 @@
 Counterpart of ``pogs_tpu/api/cone.py``.
 
     solve_cone_problem(c, A, b, dims)  solves
-        minimize    c'x
+        minimize    c'x (+ ½ x'P x)
         subject to  b − A x ∈ K,   K given by dims:
             f: #equality rows (zero cone)      l: #inequality rows (R₊)
             q: list of SOC sizes               s: list of SDP block sizes
@@ -11,8 +11,9 @@ Counterpart of ``pogs_tpu/api/cone.py``.
 
 A may be dense or sparse (a scipy matrix or a sparse torch tensor): a
 sparse A reaches ConeSolver as it is, kept sparse or densified by
-``sparse_policy``.  Quadratic objectives
-(P) come with the QP slice and raise ``NotImplementedError`` here.
+``sparse_policy``.  A quadratic objective (P, dense or a length-n diagonal)
+is solved by one of ConeSolver's QP routes (``qp_via``), not by putting P
+in the embedding, whose fixed point is not the QP optimum.
 """
 
 from __future__ import annotations
@@ -122,6 +123,7 @@ def solve_cone(
     use_fused: Optional[bool] = None,
     device=None,
     sparse_policy: str = "auto",
+    qp_via: str = "socp",
 ):
     """General cone-form solve; returns the reference result-dict contract
     (numpy arrays)."""
@@ -132,8 +134,8 @@ def solve_cone(
     )
     if solver is None:
         solver = ConeSolver(A, Kx=Kx, Ky=Ky, settings=settings, strategy=strategy,
-                            dtype=dtype, assume_svec=assume_svec, device=device,
-                            sparse_policy=sparse_policy)
+                            dtype=dtype, assume_svec=assume_svec, qp_via=qp_via,
+                            device=device, sparse_policy=sparse_policy)
     if rho is not None:
         solver.rho = float(rho)
     t0 = time.perf_counter()
@@ -213,7 +215,7 @@ def solve_cone_problem(
             h.update(np.ascontiguousarray(A).tobytes())
         key = (h.hexdigest(), tuple((int(cc.cone), cc.indices) for cc in cones_y),
                str(dtype), str(device), kw.get("assume_svec", False), kw.get("strategy"),
-               sparse_policy)
+               sparse_policy, kw.get("qp_via", "socp"))
         solver = _CONE_PROBLEM_SOLVERS.get(key)
         if solver is None:
             if len(_CONE_PROBLEM_SOLVERS) > 8:
@@ -222,7 +224,8 @@ def solve_cone_problem(
                                       max_iter=max_iter, verbose=verbose)
             solver = ConeSolver(A, Ky=cones_y, settings=settings,
                                 strategy=kw.get("strategy"), dtype=dtype,
-                                assume_svec=kw.get("assume_svec", False), device=device,
+                                assume_svec=kw.get("assume_svec", False),
+                                qp_via=kw.get("qp_via", "socp"), device=device,
                                 sparse_policy=sparse_policy)
             _CONE_PROBLEM_SOLVERS[key] = solver
     return solve_cone(

@@ -1,8 +1,8 @@
-"""Batched graph-form solves on one GPU: λ-sweeps, multi-right-hand-side
-sweeps and warm-started λ-paths.
+"""Batched solves on one GPU: λ-sweeps, multi-right-hand-side sweeps,
+warm-started λ-paths, and batched and warm-path cone and QP solves.
 
-Counterpart of the graph-form parts of ``pogs_tpu/parallel/batch.py``.  All
-lanes share one init: equilibration, the ‖A‖₂ estimate and the explicit
+Counterpart of ``pogs_tpu/parallel/batch.py``.  In the graph form all lanes
+share one init: equilibration, the ‖A‖₂ estimate and the explicit
 (Gram + I)⁻¹ of the direct projector.  Lane k then solves the problem with
 its own g.c, g.e or f.b:
 
@@ -13,18 +13,32 @@ its own g.c, g.e or f.b:
     the eager loop elsewhere) — where the JAX package vmaps the loop.
 
 The warm λ-path walks the λ values in order and carries (z, z̃, ρ) on the
-device from one step to the next.  The JAX package's mesh arguments have no
-counterpart here: the port runs on one GPU.
+device from one step to the next.
+
+The cone batches (``batched_cone_solve``, ``warm_path_cone_solve``,
+``batched_qp_solve``) equilibrate once, with the cone-averaging hook, and
+factor the Gram inverse once; each lane then makes its own SMW vectors and
+runs one HSDE solve: one launch of the cone kernel on CUDA where it applies
+(``ops/fused_hsde.py``), else the eager loop (its plain version), lane after
+lane, where the JAX package vmaps the loop.  A lane's result does not
+depend on K.
+
+The JAX package's mesh arguments have no counterpart yet: the port runs on
+one GPU.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from pogs_tpu_torch.types import Function, FunctionVector, SolverSettings
+from pogs_tpu_torch.types import (
+    Cone, ConeConstraint, Function, FunctionVector, SolverSettings, Status,
+)
+from pogs_tpu_torch.cones.sets import ConeSet
 from pogs_tpu_torch.prox.vector import prox_eval, func_eval, scale_f, scale_g
 from pogs_tpu_torch.linalg.equil import equilibrate
 from pogs_tpu_torch.linalg.norm import norm2_est
@@ -34,6 +48,10 @@ from pogs_tpu_torch.linalg.matrix import is_sparse_input
 from pogs_tpu_torch.solver.graph import _use_fused, resolve_device
 from pogs_tpu_torch.ops.fused_admm import _fv, fused_admm_loop, fused_admm_supported
 from pogs_tpu_torch.ops.fused_admm_batch import fused_batched_lasso_sweep
+from pogs_tpu_torch.ops.fused_hsde import fused_hsde_eligible, fused_hsde_solve
+from pogs_tpu_torch.solver.cone import epigraph_extension, epigraph_factor, smw_factor_from
+from pogs_tpu_torch.solver.hsde import hsde_solve
+from pogs_tpu_torch.solver.qp_polish import active_set_polish, row_kinds
 from pogs_tpu_torch.utils.precision import highest_precision
 
 
@@ -298,3 +316,230 @@ def solve_lasso_path(
     if warm:
         return warm_path_graph_solve(A, f, g, lambdas, settings=settings, device=dev)
     return batched_graph_solve(A, f, g, lambdas, settings=settings, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Batched and warm-path cone solves.
+# ---------------------------------------------------------------------------
+
+def _single_device(mesh, batch_axis):
+    if mesh is not None or batch_axis is not None:
+        raise NotImplementedError(
+            "mesh / batch_axis: the port runs on one GPU; multi-device batches are "
+            "queue 1's item 18 (ROADMAP.md)")
+
+
+class _ConeLanes:
+    """One init for a batch of cone problems on a dense A: equilibration
+    with the cone-averaging hook and the Gram inverse; ``solve`` runs one
+    lane's HSDE solve from its scaled data."""
+
+    def __init__(self, A, Ky, settings: SolverSettings, strategy: str, device):
+        self.dev = resolve_device(A, device)
+        A = _matrix(A, self.dev)
+        self.dt = A.dtype
+        self.m, self.n = A.shape
+        if self.dt == torch.float32 and min(settings.abs_tol, settings.rel_tol) < 1e-5:
+            warnings.warn(
+                "tolerances below 1e-5 sit at the float32 accuracy floor; "
+                "borderline lanes may report MAX_ITER at the optimum", stacklevel=3)
+        Ky = [c if isinstance(c, ConeConstraint) else ConeConstraint(*c) for c in Ky]
+        self.Ky = ConeSet(Ky, self.m)
+        self.settings, self.strategy = settings, strategy
+        # The cone kernel takes the lanes on CUDA where it applies; the eager
+        # loop (its plain version) everywhere else, and when use_fused=False.
+        self.kernel = (strategy == "smw" and self.dev.type == "cuda"
+                       and settings.use_fused is not False
+                       and fused_hsde_eligible(self.dt, self.Ky, False, settings.use_anderson))
+        with highest_precision():
+            self.eq = equilibrate(A, constrain_d=self.Ky.constrain_average)
+            self.Kinv = (DirectProjector("inverse").init(self.eq.A, s=1.0)["op"]
+                         if strategy == "smw" else None)
+        self.At = self.eq.A.T.contiguous() if self.kernel else None
+
+    def tensor(self, v):
+        return torch.as_tensor(np.asarray(v), dtype=self.dt, device=self.dev)
+
+    def solve(self, b_s, c_s, u0=None):
+        st, A = self.settings, self.eq.A
+        with highest_precision():
+            fac = None if self.Kinv is None else smw_factor_from(A, self.Kinv, b_s, c_s)
+            if self.kernel:
+                return fused_hsde_solve(A, b_s, c_s, self.Ky, self.Kinv, fac["t_x"], fac["t_y"],
+                                        fac["s_den"], st.abs_tol, st.rel_tol, st.max_iter,
+                                        u0=u0, At=self.At)
+            return hsde_solve(A, b_s, c_s, self.Ky, strategy=self.strategy,
+                              abs_tol=st.abs_tol, rel_tol=st.rel_tol, max_iter=st.max_iter,
+                              smw_factor=fac, use_anderson=st.use_anderson,
+                              anderson_mem=st.anderson_mem, anderson_start=st.anderson_start,
+                              u0=u0)
+
+    def unscale(self, out, b_orig, b_s, c_orig):
+        """x, y, ν and c'x of one lane; zero where τ ≈ 0 (no certificate ray
+        comes back from a batch, as in the JAX package)."""
+        m, n = self.m, self.n
+        w = out["w"]
+        tau = w[n + m]
+        ok = tau > 1e-8
+        tau_safe = torch.where(ok, tau, torch.ones_like(tau))
+        x_s, y_s = w[:n] / tau_safe, w[n:n + m] / tau_safe
+        zero_n, zero_m = torch.zeros_like(x_s), torch.zeros_like(y_s)
+        s_orig = (b_s - torch.mv(self.eq.A, x_s)) / self.eq.d
+        x = torch.where(ok, x_s * self.eq.e, zero_n)
+        return {"x": x, "y": torch.where(ok, b_orig - s_orig, zero_m),
+                "nu": torch.where(ok, y_s * self.eq.d, zero_m), "optval": torch.dot(c_orig, x),
+                "iterations": out["final_iter"], "status": out["status"]}
+
+
+def _stack(lanes, keys):
+    return {key: torch.stack([lane[key] for lane in lanes]) for key in keys}
+
+
+def batched_cone_solve(
+    A,
+    b_batch,
+    c_batch,
+    Ky,
+    settings: Optional[SolverSettings] = None,
+    strategy: str = "smw",
+    mesh=None,
+    batch_axis=None,
+    device=None,
+):
+    """Solve a batch of cone problems  min c_k'x  s.t.  b_k − A x ∈ K_y
+    sharing one matrix and cone structure (scenario LPs, MPC over initial
+    states): equilibrate and factor once, then one HSDE solve per lane (one
+    cone-kernel launch each on CUDA where it applies).
+
+    ``b_batch``: (K, m); ``c_batch``: (K, n) or (n,) for every lane.
+    ``mesh`` and ``batch_axis`` must be None (one GPU).  Returns a dict of
+    tensors: x (K, n), y (K, m), nu (K, m), optval, iterations and status,
+    each (K,).
+    """
+    _single_device(mesh, batch_axis)
+    lanes = _ConeLanes(A, Ky, settings or SolverSettings(), strategy, device)
+    bs = lanes.tensor(b_batch)
+    cs = lanes.tensor(c_batch)
+    K = bs.shape[0]
+    if cs.dim() == 1:
+        cs = cs.expand(K, -1)
+    eq = lanes.eq
+    out = []
+    for k in range(K):
+        b_s, c_s = bs[k] * eq.d, cs[k] * eq.e
+        out.append(lanes.unscale(lanes.solve(b_s, c_s), bs[k], b_s, cs[k]))
+    return _stack(out, ("x", "y", "nu", "optval", "iterations", "status"))
+
+
+def warm_path_cone_solve(
+    A,
+    b_batch,
+    c,
+    Ky,
+    settings: Optional[SolverSettings] = None,
+    strategy: str = "smw",
+    device=None,
+):
+    """A warm-started sequence of cone problems min cᵀx s.t. b_k − Ax ∈ K_y
+    whose b_k drift gradually (MPC steps, scenario sweeps): the HSDE
+    embedding u carries from one step to the next (the first starts from
+    e_τ), on the device, so each problem starts on the previous solution
+    ray.
+
+    ``b_batch``: (K, m); ``c``: (n,).  Returns a dict of tensors: x (K, n),
+    optval, iterations and status, each (K,).
+    """
+    lanes = _ConeLanes(A, Ky, settings or SolverSettings(), strategy, device)
+    bs = lanes.tensor(b_batch)
+    c_orig = lanes.tensor(c)
+    m, n, eq = lanes.m, lanes.n, lanes.eq
+    c_s = c_orig * eq.e
+    u = torch.zeros(n + m + 1, dtype=lanes.dt, device=lanes.dev)
+    u[n + m] = 1.0
+    out = []
+    for k in range(bs.shape[0]):
+        b_s = bs[k] * eq.d
+        res = lanes.solve(b_s, c_s, u0=u)
+        u = res["u"]
+        out.append(lanes.unscale(res, bs[k], b_s, c_orig))
+    return _stack(out, ("x", "optval", "iterations", "status"))
+
+
+def batched_qp_solve(
+    A,
+    P_qp,
+    b_batch,
+    c_batch,
+    Ky,
+    settings: Optional[SolverSettings] = None,
+    strategy: str = "smw",
+    mesh=None,
+    batch_axis=None,
+    polish: bool = True,
+    device=None,
+):
+    """Solve a batch of QPs  min c_kᵀx + ½xᵀPx  s.t.  b_k − Ax ∈ K_y
+    sharing one (A, P, K_y): scenario MPC with quadratic stage costs,
+    parameter sweeps over tracking targets.
+
+    The epigraph rotated-SOC extension of ``ConeSolver``'s QP route is built
+    once (P = LtᵀLt by the host eigh; rows [A | 0; t-rows; √2·Lt]); lanes
+    differ in the extended (b, c) only, and run through
+    ``batched_cone_solve``.  With ``polish`` and a polyhedral K_y each
+    SUCCESS or MAX_ITER lane then gets the host f64 PDAS polish, once, at
+    the end of its solve, as in the JAX package.
+
+    ``b_batch``: (K, m); ``c_batch``: (K, n) or (n,).  Returns a dict of
+    numpy arrays: x (K, n), nu (K, m), optval, iterations, status and
+    polished, each (K,).
+    """
+    _single_device(mesh, batch_axis)
+    settings = settings or SolverSettings()
+    if isinstance(A, torch.Tensor):
+        A = A.detach().cpu()
+    A = np.asarray(A, np.float64)
+    m, n = A.shape
+    P64 = np.asarray(P_qp, np.float64)
+    P64 = (P64 + P64.T) / 2
+    if P64.shape != (n, n):
+        raise ValueError(f"P must be {n}x{n}")
+    b_batch = np.asarray(b_batch, np.float64)
+    K = b_batch.shape[0]
+    c_batch = np.asarray(c_batch, np.float64)
+    c_shared = c_batch.ndim == 1
+
+    A_ext, r = epigraph_extension(A, epigraph_factor(P64)[0])
+    tail = np.concatenate([[1.0, -1.0], np.zeros(r)])
+    b_ext = np.concatenate([b_batch, np.broadcast_to(tail, (K, r + 2))], axis=1)
+    if c_shared:
+        c_ext = np.concatenate([c_batch, [1.0]])
+    else:
+        c_ext = np.concatenate([c_batch, np.ones((K, 1))], axis=1)
+    Ky = [c if isinstance(c, ConeConstraint) else ConeConstraint(*c) for c in Ky]
+    Ky_ext = list(Ky) + [ConeConstraint(Cone.SOC, range(m, m + r + 2))]
+
+    out = batched_cone_solve(A_ext, b_ext, c_ext, Ky_ext, settings=settings,
+                             strategy=strategy, device=device)
+    x = out["x"][:, :n].cpu().double().numpy().copy()
+    nu = out["nu"][:, :m].cpu().double().numpy().copy()
+    status = out["status"].cpu().numpy().copy()
+    iterations = out["iterations"].cpu().numpy()
+    optval = np.einsum("kn,kn->k", x, x @ P64) * 0.5
+    optval = optval + (x @ c_batch if c_shared else np.einsum("kn,kn->k", c_batch, x))
+    polished = np.zeros(K, bool)
+    kind = row_kinds(m, Ky) if polish else None
+    if kind is not None:
+        tol = float(max(settings.abs_tol, settings.rel_tol))
+        for k in range(K):
+            if status[k] not in (Status.SUCCESS, Status.MAX_ITER):
+                continue
+            ck = c_batch if c_shared else c_batch[k]
+            pol = active_set_polish(P64, ck, A, b_batch[k], kind, x[k], nu[k], tol)
+            if pol is not None:
+                x[k] = pol["x"]
+                nu[k] = pol["lam"]
+                status[k] = Status.SUCCESS
+                optval[k] = ck @ x[k] + 0.5 * x[k] @ P64 @ x[k]
+                polished[k] = True
+    return {"x": x, "nu": nu, "optval": optval, "iterations": iterations,
+            "status": status, "polished": polished}

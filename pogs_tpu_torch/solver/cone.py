@@ -2,7 +2,7 @@
 
 Counterpart of ``pogs_tpu/solver/cone.py``:
 
-    minimize    c'x
+    minimize    c'x (+ ½ x'Px)
     subject to  b − A x ∈ K_y,   x ∈ K_x
 
 K_x empty → the HSDE Douglas–Rachford solve (``solver/hsde.py``, or on a
@@ -10,6 +10,19 @@ CUDA device the cone kernel ``ops/fused_hsde.py``); K_x non-empty → the
 graph-form ADMM loop with the cone objective (a linear x-step and cone
 projections) in exact-tolerance mode.  Equilibration averages the scalings
 within each non-separable cone.
+
+A quadratic objective (P dense (n, n) or a length-n diagonal; K_x empty)
+takes one of the JAX package's QP routes:
+  * ``qp_via="socp"`` (default): with ``polish`` on and polyhedral K_y the
+    host IPM (``solver/qp_ipm.py``) first, returned only when its KKT
+    residuals certify the point; otherwise the epigraph reformulation
+    ½x'Px ≤ t as a rotated SOC of r + 2 rows from P = LtᵀLt, solved by a
+    sub-``ConeSolver`` through the conic HSDE path (on CUDA the cone
+    kernel: one SOC segment), in segments of ``K_QP_SEGMENT_ITERS``
+    warm-started iterations with the PDAS polish (``solver/qp_polish.py``)
+    tried after each;
+  * ``qp_via="admm"``: the graph-form cone loop with the quadratic x-prox
+    through a one-time host eigh of the scaled P, then the PDAS polish.
 
 Which loop runs the HSDE solve (``settings.use_fused``):
   * None (auto): the kernel on a CUDA device, for float32 or float64, when
@@ -25,7 +38,7 @@ Which loop runs the HSDE solve (``settings.use_fused``):
 A sparse A (``sparse_policy``, as ``GraphFormSolver``'s) stays a
 SparseMatrix: the HSDE solve then takes the matrix-free ``cg`` strategy,
 and the graph-form cone path the CGLS projector; neither reaches the
-kernel.  Not ported yet: a quadratic P (the QP routes, slice 5).
+kernel.
 """
 
 from __future__ import annotations
@@ -38,19 +51,125 @@ import numpy as np
 import torch
 
 from pogs_tpu_torch.types import (
-    DEFAULT_RHO, ConeConstraint, SolverResult, SolverSettings, Status, _torch_dtype,
+    DEFAULT_RHO, Cone, ConeConstraint, SolverResult, SolverSettings, Status, _torch_dtype,
 )
 from pogs_tpu_torch.cones.sets import ConeSet
 from pogs_tpu_torch.linalg.equil import equilibrate
-from pogs_tpu_torch.linalg.matrix import input_dtype, matvecs
+from pogs_tpu_torch.linalg.matrix import _torch_coo, input_dtype, is_sparse_input, matvecs
 from pogs_tpu_torch.linalg.norm import norm2_est
 from pogs_tpu_torch.projector.direct import DirectProjector
 from pogs_tpu_torch.projector.indirect import CglsProjector
 from pogs_tpu_torch.solver.admm import admm_loop, postsolve_verify
 from pogs_tpu_torch.solver.graph import matrix_operator, resolve_device
 from pogs_tpu_torch.solver.hsde import hsde_solve, polish_plan
+from pogs_tpu_torch.solver.qp_ipm import ipm_solve
+from pogs_tpu_torch.solver.qp_polish import active_set_polish, kkt_residuals, row_kinds
 from pogs_tpu_torch.ops.fused_hsde import fused_hsde_eligible, fused_hsde_solve
 from pogs_tpu_torch.utils.precision import highest_precision
+
+# The staged QP solve (``_solve_qp_as_socp``): HSDE segment length between
+# PDAS-polish attempts, and the largest n whose dense-P KKT the host polish
+# factors mid-solve (a diagonal P polishes at any n).
+K_QP_SEGMENT_ITERS = 500
+K_QP_STAGED_N_MAX = 4000
+
+
+def _cone_key(cones):
+    return tuple((int(c.cone), c.indices) for c in cones)
+
+
+def _host(v) -> np.ndarray:
+    """A tensor or array as a float64 numpy array on the host."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().double().numpy()
+    return np.asarray(v, np.float64)
+
+
+def host_matrix(A):
+    """A on the host in float64: a scipy CSR matrix for sparse input (scipy
+    or a sparse torch tensor), else a dense numpy array."""
+    if is_sparse_input(A):
+        import scipy.sparse as sp
+
+        if not isinstance(A, torch.Tensor):
+            return sp.csr_matrix(A, dtype=np.float64)
+        C = _torch_coo(A, torch.float64, "cpu")
+        ij = C.indices().numpy()
+        return sp.csr_matrix((C.values().numpy(), (ij[0], ij[1])), shape=tuple(C.shape))
+    return _host(A)
+
+
+def epigraph_factor(P):
+    """The epigraph SOC's factor of a PSD P, and a key of it for the QP
+    sub-solver's cache.  Eigenvalues above max(1e-12, 1e-10·max(λmax, 1))
+    are kept.  A dense P gives (Lt, key), Lt (r, n) with P = LtᵀLt from the
+    host eigh of its symmetric part; a length-n diagonal P gives
+    ((keep_idx, sqrt(P[keep_idx])), key), one row per kept entry."""
+    P = np.asarray(P, np.float64)
+    if P.ndim == 1:
+        keep_idx = np.flatnonzero(P > max(1e-12, 1e-10 * max(float(P.max(initial=0.0)), 1.0)))
+        sqw = np.sqrt(P[keep_idx])
+        return (keep_idx, sqw), (b"diag", sqw.tobytes(), keep_idx.tobytes())
+    w, V = np.linalg.eigh((P + P.T) / 2)
+    keep = w > max(1e-12, 1e-10 * max(float(w.max(initial=0.0)), 1.0))
+    Lt = np.sqrt(w[keep])[:, None] * V[:, keep].T
+    return Lt, Lt.tobytes()
+
+
+def epigraph_extension(A, factor, sparse=False):
+    """The epigraph QP's matrix over the variables (x, t): the rows of A
+    with a zero t column, the rotated SOC's two t-rows (s0 = 1 + t,
+    s1 = −1 + t) and −√2·Lt, from the factor ``epigraph_factor`` returns
+    (dense or diagonal).  A scipy CSR matrix when ``sparse`` (A then scipy
+    sparse), else a dense f64 array.  Returns (A_ext, r), r the factor's
+    rows."""
+    m, n = A.shape
+    diag = isinstance(factor, tuple)
+    r = factor[0].size if diag else factor.shape[0]
+    if sparse:
+        import scipy.sparse as sp
+
+        t_rows = sp.csr_matrix((np.array([-1.0, -1.0]), (np.array([0, 1]), np.array([n, n]))),
+                               shape=(2, n + 1))
+        if diag:
+            keep_idx, sqw = factor
+            Lt = sp.csr_matrix((-np.sqrt(2.0) * sqw, (np.arange(r), keep_idx)), shape=(r, n))
+        else:
+            Lt = sp.csr_matrix(-np.sqrt(2.0) * factor)
+        A_ext = sp.vstack([
+            sp.hstack([A, sp.csr_matrix((m, 1))]),
+            t_rows,
+            sp.hstack([Lt, sp.csr_matrix((r, 1))]),
+        ]).tocsr()
+        return A_ext, r
+    A_ext = np.zeros((m + r + 2, n + 1))
+    A_ext[:m, :n] = A.toarray() if hasattr(A, "toarray") else A
+    A_ext[m, n] = -1.0
+    A_ext[m + 1, n] = -1.0
+    if diag:
+        keep_idx, sqw = factor
+        A_ext[m + 2 + np.arange(r), keep_idx] = -np.sqrt(2.0) * sqw
+    else:
+        A_ext[m + 2:, :n] = -np.sqrt(2.0) * factor
+    return A_ext, r
+
+
+def smw_factor_from(A, Kinv, b_s, c_s) -> dict:
+    """The SMW factor of scaled data (b_s, c_s) for a dense equilibrated A
+    from the Gram inverse the direct projector caches: tall, Kinv =
+    (I + AᵀA)⁻¹; wide, Woodbury through the m×m Kinv = (I + AAᵀ)⁻¹.  The
+    cone kernel takes Kinv, t_x, t_y and s_den; the eager loop ``apply``."""
+    m, n = A.shape
+    if m >= n:
+        def apply_kinv(v):
+            return torch.mv(Kinv, v)
+    else:
+        def apply_kinv(v):
+            return v - torch.mv(A.T, torch.mv(Kinv, torch.mv(A, v)))
+    t_x = apply_kinv(c_s - torch.mv(A.T, b_s))
+    t_y = b_s + torch.mv(A, t_x)
+    s_den = 1.0 + torch.dot(c_s, t_x) + torch.dot(b_s, t_y)
+    return {"apply": apply_kinv, "t_x": t_x, "t_y": t_y, "s_den": s_den}
 
 
 class ConeSolver:
@@ -66,13 +185,20 @@ class ConeSolver:
         projector: str = "direct",
         dtype=None,
         assume_svec: bool = False,
+        qp_via: str = "socp",
         device=None,
         sparse_policy: str = "auto",
     ):
         if projector not in ("direct", "cgls"):
             raise ValueError(f"unknown projector {projector!r}")
+        if qp_via not in ("admm", "socp"):
+            raise ValueError(f"unknown qp_via {qp_via!r}")
+        self.qp_via = qp_via
         self.device = resolve_device(A, device)
         self.dtype = input_dtype(A) if dtype is None else _torch_dtype(dtype)
+        self.sparse_policy = sparse_policy
+        # The caller's A, for the QP routes' host work and epigraph extension.
+        self._A_raw = A
         Aop = matrix_operator(A, self.dtype, self.device, sparse_policy)
         self.m, self.n = Aop.shape
         self.Kx = ConeSet(list(Kx), self.n)
@@ -108,6 +234,8 @@ class ConeSolver:
         self.strategy = strategy
         self._init_state = None
         self._u = None
+        self._qp_sub = self._qp_sub_key = self._qp_eig = None
+        self._A_host = None
         self.rho = float(base.rho)
 
     def _tensor(self, v):
@@ -178,9 +306,6 @@ class ConeSolver:
 
     def solve(self, b, c, P=None, settings: Optional[SolverSettings] = None,
               warm_start: bool = False) -> SolverResult:
-        if P is not None:
-            raise NotImplementedError(
-                "quadratic objectives (the QP routes) come with slice 5 (QP and LP)")
         settings = (settings.replace(use_exact_tol=True)
                     if settings is not None else self.settings)
         if (self.dtype == torch.float32
@@ -193,6 +318,13 @@ class ConeSolver:
             )
         if settings.rho != DEFAULT_RHO:
             self.rho = float(settings.rho)
+        if P is not None:
+            P = self._check_P(P)
+            # The embedding with P in Q does not have the QP optimum as a
+            # fixed point, so QPs go through one of the QP routes.
+            if self.qp_via == "admm":
+                return self._solve_qp_admm(b, c, P, settings)
+            return self._solve_qp_as_socp(b, c, P, settings, warm_start=warm_start)
         self.init()
 
         npdt = np.float64 if self.dtype == torch.float64 else np.float32
@@ -224,20 +356,10 @@ class ConeSolver:
         )
 
     def smw_factor(self, b_s, c_s) -> dict:
-        """The SMW factor of the scaled data from the cached Gram inverse:
-        tall, (I + AᵀA)⁻¹; wide, Woodbury through the m×m (I + AAᵀ)⁻¹."""
+        """The SMW factor of the scaled data from the cached Gram inverse
+        (``smw_factor_from``)."""
         st = self._init_state
-        A, Kinv = st["A"], st["factor"]["op"]
-        if self.m >= self.n:
-            def apply_kinv(v):
-                return torch.mv(Kinv, v)
-        else:
-            def apply_kinv(v):
-                return v - torch.mv(A.T, torch.mv(Kinv, torch.mv(A, v)))
-        t_x = apply_kinv(c_s - torch.mv(A.T, b_s))
-        t_y = b_s + torch.mv(A, t_x)
-        s_den = 1.0 + torch.dot(c_s, t_x) + torch.dot(b_s, t_y)
-        return {"apply": apply_kinv, "t_x": t_x, "t_y": t_y, "s_den": s_den}
+        return smw_factor_from(st["A"], st["factor"]["op"], b_s, c_s)
 
     def _solve_hsde(self, b_orig, c_orig, settings, u0):
         st = self._init_state
@@ -274,6 +396,20 @@ class ConeSolver:
                 "status": out["status"], "r_pri": out["r_pri"], "r_dua": out["r_dua"],
                 "gap": out["gap"], "u": out["u"]}
 
+    def _project_fn(self, settings):
+        """The graph-form loop's projection onto {y = Ax} from the init's
+        factor: the direct projector's cached inverse, or CGLS."""
+        st = self._init_state
+        if self.projector == "direct":
+            projector = DirectProjector("inverse")
+        else:
+            projector = CglsProjector(settings.cgls_max_iter)
+
+        def project_fn(px, py, tol, x_warm):
+            return projector.project(st["A"], st["factor"], px, py, tol, x_warm)
+
+        return project_fn
+
     def _solve_graph(self, b_orig, c_orig, settings):
         """The graph-form cone path (K_x non-empty) in exact-tolerance mode."""
         st = self._init_state
@@ -293,16 +429,8 @@ class ConeSolver:
         def eval_fn(x12, y12):
             return torch.dot(c_n, x12) / c_scale
 
-        if self.projector == "direct":
-            projector = DirectProjector("inverse")
-        else:
-            projector = CglsProjector(settings.cgls_max_iter)
-
-        def project_fn(px, py, tol, x_warm):
-            return projector.project(A, st["factor"], px, py, tol, x_warm)
-
         z0 = torch.zeros(m + n, dtype=self.dtype, device=self.device)
-        out = admm_loop(A, st["norm_A"], d, e, prox_fn, eval_fn, project_fn,
+        out = admm_loop(A, st["norm_A"], d, e, prox_fn, eval_fn, self._project_fn(settings),
                         settings, z0, z0, self.rho)
         status = postsolve_verify(A, d, e, out["x12"], out["y12"], out["status"],
                                   settings.abs_tol, settings.rel_tol)
@@ -310,3 +438,219 @@ class ConeSolver:
                 "nu": out["nu_scaled"] * d, "optval": out["optval"],
                 "final_iter": out["final_iter"], "status": status,
                 "r_pri": out["nrm_r"], "r_dua": out["nrm_s"], "gap": out["gap"]}
+
+    # -- the QP routes ---------------------------------------------------------
+
+    def _check_P(self, P) -> np.ndarray:
+        """P on the host: a dense (n, n) or a nonnegative length-n diagonal."""
+        P = P.toarray() if hasattr(P, "toarray") else _host(P)
+        if P.ndim == 1:
+            if P.shape != (self.n,):
+                raise ValueError(f"diagonal P must have length {self.n}")
+            if np.any(P < 0):
+                raise ValueError("diagonal P must be nonnegative")
+        elif P.shape != (self.n, self.n):
+            raise ValueError(f"P must be {self.n}x{self.n} or a length-{self.n} diagonal")
+        if not self.use_hsde:
+            raise ValueError("quadratic objectives with K_x constraints are not supported")
+        return P
+
+    def _host_A(self):
+        if self._A_host is None:
+            self._A_host = host_matrix(self._A_raw)
+        return self._A_host
+
+    def _objective(self, c, P, x):
+        """c'x + ½x'Px in the solver's dtype on its device."""
+        Pt, ct = self._tensor(P), self._tensor(_host(c))
+        Px = Pt * x if P.ndim == 1 else torch.mv(Pt, x)
+        return torch.dot(ct, x) + 0.5 * torch.dot(x, Px)
+
+    def _solve_qp_as_socp(self, b, c, P, settings, warm_start=False):
+        """min c'x + ½x'Px s.t. b−Ax ∈ K_y  ⇒  an epigraph variable t with
+        ½x'Px ≤ t as a rotated second-order cone,
+
+            (t+1, t−1, √2 Lt x) ∈ SOC,   P = LtᵀLt,
+
+        then min c'x + t through the conic HSDE path (the host IPM first,
+        when polish is on and K_y polyhedral)."""
+        n, m = self.n, self.m
+        npdt = np.float64 if self.dtype == torch.float64 else np.float32
+        if settings.polish:
+            res_ipm = self._try_qp_ipm(P, b, c, settings)
+            if res_ipm is not None:
+                return res_ipm
+        diag_p = P.ndim == 1
+        factor, lt_key = epigraph_factor(P)
+        # Extended variable (x, t); extended rows: the original m, then the
+        # rotated SOC's r + 2.  A sparse A keeps the extension sparse (the
+        # CGLS projector).
+        A_ext, r = epigraph_extension(self._host_A(), factor, sparse=self.A.is_sparse)
+        A_ext = A_ext.astype(npdt)
+        b_ext = np.concatenate([_host(b), [1.0, -1.0], np.zeros(r)])
+        c_ext = np.concatenate([_host(c), [1.0]])
+        Ky_ext = list(self.Ky.constraints) + [ConeConstraint(Cone.SOC, range(m, m + r + 2))]
+        sub_key = (A_ext.shape, lt_key, _cone_key(self.Ky.constraints))
+        sub = self._qp_sub
+        if sub is None or self._qp_sub_key != sub_key:
+            sub = ConeSolver(A_ext, Ky=Ky_ext, settings=settings, strategy=self.strategy,
+                             projector=self.projector, dtype=self.dtype, device=self.device,
+                             sparse_policy=self.sparse_policy)
+            self._qp_sub, self._qp_sub_key = sub, sub_key
+        # The warm start carries through to the extended solver: its cone
+        # structure is the same across re-solves with perturbed (b, c).
+        #
+        # Staged: the DR tail on the epigraph SOC is linear and may take
+        # O(10⁴) iterations, while the PDAS polish certifies the optimum from
+        # a few hundred; for polyhedral K_y the HSDE runs in warm-started
+        # segments with a polish attempt after each (one status read per
+        # segment), and exits when the active set is identified.
+        b_run, c_run = b_ext.astype(npdt), c_ext.astype(npdt)
+        staged = (settings.polish and settings.max_iter > K_QP_SEGMENT_ITERS
+                  and (diag_p or n <= K_QP_STAGED_N_MAX)
+                  and row_kinds(m, self.Ky.constraints) is not None)
+        polished = None
+        if not staged:
+            res = sub.solve(b_run, c_run, settings=settings, warm_start=warm_start)
+            total_iter = res.final_iter
+        else:
+            seg_settings = settings.replace(max_iter=K_QP_SEGMENT_ITERS)
+            total_iter, ws = 0, warm_start
+            while True:
+                res = sub.solve(b_run, c_run, settings=seg_settings, warm_start=ws)
+                ws = True
+                total_iter += int(res.final_iter)
+                if res.status != Status.MAX_ITER or total_iter >= settings.max_iter:
+                    break
+                out = self._polish_qp(P, b, c, res.x[:n], res.y[:m], res.nu[:m], res.status,
+                                      res.nrm_r, res.nrm_s, settings)
+                if out[3] == Status.SUCCESS:
+                    polished = out
+                    break
+        if polished is None:
+            polished = self._polish_qp(P, b, c, res.x[:n], res.y[:m], res.nu[:m], res.status,
+                                       res.nrm_r, res.nrm_s, settings)
+        x, y, nu, status, nrm_r, nrm_s = polished
+        return SolverResult(
+            x=x, y=y, mu=res.mu[:n], nu=nu, optval=self._objective(c, P, x),
+            final_iter=total_iter, status=status, nrm_r=nrm_r, nrm_s=nrm_s, gap=res.gap,
+            solve_time=res.solve_time,
+        )
+
+    def _try_qp_ipm(self, P, b, c, settings):
+        """The host IPM on a polyhedral QP; None on any miss.  Only a point
+        whose relative KKT residuals (``qp_polish.kkt_residuals``) meet the
+        solve tolerance returns, after a short PDAS pass that snaps
+        complementarity (adopted only if it scores better)."""
+        kind = row_kinds(self.m, self.Ky.constraints)
+        if kind is None:
+            return None
+        t0 = time.perf_counter()
+        P64, c64, b64 = np.asarray(P, np.float64), _host(c), _host(b)
+        A_h = self._host_A()
+        tol = float(max(settings.abs_tol, settings.rel_tol))
+        out = ipm_solve(P64, c64, A_h, b64, kind, tol=min(1e-9, tol), max_iter=50)
+        if out is None:
+            return None
+        res = kkt_residuals(P64, c64, A_h, b64, kind, out["x"], out["lam"])
+        x64, lam64 = out["x"], out["lam"]
+        score = max(res.values())
+        pol = active_set_polish(P64, c64, A_h, b64, kind, x64, lam64, tol, max_pdas=3)
+        if pol is not None and pol["score"] < score:
+            x64, lam64, res, score = pol["x"], pol["lam"], pol["res"], pol["score"]
+        if score > tol:
+            return None
+        Px64 = P64 * x64 if P64.ndim == 1 else P64 @ x64
+        t = self._tensor
+        return SolverResult(
+            x=t(x64), y=t(A_h @ x64), mu=t(np.zeros(self.n)), nu=t(lam64),
+            optval=t(float(c64 @ x64 + 0.5 * (x64 @ Px64))),
+            final_iter=int(out["iters"]), status=Status.SUCCESS, nrm_r=t(res["pri"]),
+            nrm_s=t(res["stat"]), gap=t(res["comp"]), solve_time=time.perf_counter() - t0,
+        )
+
+    def _polish_qp(self, P, b, c, x, y, nu, status, nrm_r, nrm_s, settings):
+        """The active-set KKT polish (``qp_polish.py``): one host f64 PDAS pass
+        on the detected active rows.  It lifts a SUCCESS or MAX_ITER iterate
+        to about machine precision when the active set is identified; a
+        rejected polish leaves the iterate untouched."""
+        if not (settings.polish and status in (Status.SUCCESS, Status.MAX_ITER)):
+            return x, y, nu, status, nrm_r, nrm_s
+        kind = row_kinds(self.m, self.Ky.constraints)
+        if kind is None:
+            return x, y, nu, status, nrm_r, nrm_s
+        A_h = self._host_A()
+        tol = float(max(settings.abs_tol, settings.rel_tol))
+        pol = active_set_polish(np.asarray(P, np.float64), _host(c), A_h, _host(b), kind,
+                                _host(x), _host(nu), tol)
+        if pol is None:
+            return x, y, nu, status, nrm_r, nrm_s
+        t = self._tensor
+        return (t(pol["x"]), t(A_h @ pol["x"]), t(pol["lam"]), Status.SUCCESS,
+                t(pol["res"]["pri"]), t(pol["res"]["stat"]))
+
+    def _solve_qp_admm(self, b, c, P, settings):
+        """min cᵀx + ½xᵀPx s.t. b − Ax ∈ K_y by the graph-form cone loop.
+
+        x-prox: (P_s + ρI)⁻¹(ρv − c_s) through a one-time host eigh of the
+        equilibrated P_s = E·P·E (cached per P and scaling), so a change of ρ
+        is a diagonal divide between two products; a diagonal P is its own
+        eigenbasis.  y-prox: the cone projection of b_s − y.  The objective
+        is divided by σ = max(λmax(P_s), ‖c_s‖), which leaves the argmin
+        alone.  The PDAS polish finishes polyhedral problems."""
+        if self._needs_svec:
+            # SDP cones under the svec transform would conjugate P too.
+            return self._solve_qp_as_socp(b, c, P, settings)
+        n, m = self.n, self.m
+        npdt = np.float64 if self.dtype == torch.float64 else np.float32
+        b, c = _host(b).astype(npdt), _host(c).astype(npdt)
+        self.init()
+        st = self._init_state
+        A, d, e = st["A"], st["d"], st["e"]
+        e_host = _host(e)
+        diag_mode = P.ndim == 1
+        if diag_mode:
+            lam_eig = np.maximum(P, 0.0) * e_host * e_host
+            V = None
+        else:
+            P = (P + P.T) / 2
+            eig_key = (hash(P.tobytes()), hash(e_host.tobytes()))
+            if self._qp_eig is None or self._qp_eig[0] != eig_key:
+                lam, V = np.linalg.eigh(P * e_host[:, None] * e_host[None, :])
+                self._qp_eig = (eig_key, self._tensor(V), np.maximum(lam, 0.0))
+            _, V, lam_eig = self._qp_eig
+        sigma = max(float(lam_eig.max(initial=0.0)), float(np.linalg.norm(c * e_host)), 1e-12)
+        t0 = time.perf_counter()
+        with highest_precision():
+            b_s = self._tensor(b) * d
+            c_s = self._tensor(c) * e / sigma
+            lam_hat = self._tensor(lam_eig / sigma)
+            Ky = self.Ky
+
+            def prox_fn(x_in, y_in, rho):
+                if diag_mode:
+                    x12 = (rho * x_in - c_s) / (lam_hat + rho)
+                else:
+                    x12 = torch.mv(V, torch.mv(V.T, rho * x_in - c_s) / (lam_hat + rho))
+                return x12, b_s - Ky.project(b_s - y_in)
+
+            def eval_fn(x12, y12):
+                w = x12 if diag_mode else torch.mv(V.T, x12)
+                return torch.dot(c_s, x12) + 0.5 * torch.dot(w, lam_hat * w)
+
+            z0 = torch.zeros(m + n, dtype=self.dtype, device=self.device)
+            out = admm_loop(A, st["norm_A"], d, e, prox_fn, eval_fn, self._project_fn(settings),
+                            settings, z0, z0, self.rho)
+            status = postsolve_verify(A, d, e, out["x12"], out["y12"], out["status"],
+                                      settings.abs_tol, settings.rel_tol)
+            # Undo the objective normalization: the duals of the σ-scaled
+            # objective are σ× the original's.
+            x, y, nu = out["x12"] * e, out["y12"] / d, out["nu_scaled"] * d * sigma
+            mu = out["mu_scaled"] / e * sigma
+        x, y, nu, status, nrm_r, nrm_s = self._polish_qp(
+            P, b, c, x, y, nu, Status(int(status)), out["nrm_r"], out["nrm_s"], settings)
+        return SolverResult(
+            x=x, y=y, mu=mu, nu=nu, optval=self._objective(c, P, x),
+            final_iter=out["final_iter"], status=status, nrm_r=nrm_r, nrm_s=nrm_s,
+            gap=out["gap"], solve_time=time.perf_counter() - t0,
+        )

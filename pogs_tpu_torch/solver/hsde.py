@@ -2,7 +2,7 @@
 
 Counterpart of ``pogs_tpu/solver/hsde.py``.  Solves
 
-    minimize    c'x
+    minimize    c'x (+ ½ x'Px)
     subject to  b − A x ∈ K_y,   x free
 
 by Douglas–Rachford splitting on the embedding u = [x; y; τ]:
@@ -16,10 +16,16 @@ every 10 iterations, and the infeasibility / unboundedness certificates of
 the τ → 0 branch, classified by dominance and confirmed by a second firing
 at a tighter fixed-point residual.  The same constants as the JAX package.
 
+A dense P enters the embedding as the reference's does (Q's x block gains
+Px, the Gram operator becomes I + P + AᵀA, the check adds x'Px to the gap
+and Px to the dual residual); the embedding with P does not have the QP
+optimum as its fixed point, which is why ``ConeSolver`` solves QPs through
+the epigraph SOC instead (``solver/cone.py``).  With P the LP polish is off.
+
 Linear solvers for (I + Q) w = u, each factored once:
   * ``smw``    — Sherman–Morrison–Woodbury through the Gram inverse
-                 (I + AᵀA)⁻¹ (or a caller's ``apply``, e.g. Woodbury through
-                 the m×m inverse of a wide A);
+                 (I + P + AᵀA)⁻¹ (or a caller's ``apply``, e.g. Woodbury
+                 through the m×m inverse of a wide A);
   * ``direct`` — Cholesky of the normal equations MᵀM + δI (M = I + Q) with
                  two refinement steps, for small embeddings;
   * ``cg``     — Jacobi-preconditioned CG on the normal equations, on split
@@ -101,10 +107,10 @@ def _dense(A):
     return A.dense() if hasattr(A, "dense") else A
 
 
-def make_q_matvec(A, b, c):
-    """Q [x;y;τ] = [Aᵀy + cτ; −Ax + bτ; −cᵀx − bᵀy] and Qᵀ, packed form."""
+def make_q_matvec(A, b, c, P=None):
+    """Q [x;y;τ] = [Px + Aᵀy + cτ; −Ax + bτ; −cᵀx − bᵀy] and Qᵀ, packed form."""
     m, n = A.shape
-    q, qt = _q_apply_split(A, b, c)
+    q, qt = _q_apply_split(A, b, c, P)
 
     def q_matvec(u):
         top, mid, bot = q(u[:n], u[n:n + m], u[n + m])
@@ -117,29 +123,36 @@ def make_q_matvec(A, b, c):
     return q_matvec, qt_matvec
 
 
-def _q_apply_split(A, b, c):
+def _q_apply_split(A, b, c, P=None):
     """Split-form Q and Qᵀ: (x, y, τ) → (x', y', τ'); A a tensor or an
-    operator."""
+    operator, P a dense (n, n) tensor or None."""
     amv, armv = matvecs(A)
 
     def q(x, y, tau):
-        return (armv(y) + c * tau, -amv(x) + b * tau,
-                -torch.dot(c, x) - torch.dot(b, y))
+        top = armv(y) + c * tau
+        if P is not None:
+            top = top + torch.mv(P, x)
+        return (top, -amv(x) + b * tau, -torch.dot(c, x) - torch.dot(b, y))
 
     def qt(x, y, tau):
-        return (-armv(y) - c * tau, amv(x) - b * tau,
-                torch.dot(c, x) + torch.dot(b, y))
+        top = -armv(y) - c * tau
+        if P is not None:
+            top = top + torch.mv(P, x)
+        return (top, amv(x) - b * tau, torch.dot(c, x) + torch.dot(b, y))
 
     return q, qt
 
 
-def smw_setup(A, b, c):
-    """Factor M = [I, Aᵀ; −A, I] by elimination: K = I + AᵀA and its inverse,
-    then t = M⁻¹h and s_den = 1 + hᵀt for the rank-1 τ coupling."""
+def smw_setup(A, b, c, P=None):
+    """Factor M = [I+P, Aᵀ; −A, I] by elimination: K = I + P + AᵀA and its
+    inverse, then t = M⁻¹h and s_den = 1 + hᵀt for the rank-1 τ coupling."""
     Ad = _dense(A)
     n = Ad.shape[1]
     eye = torch.eye(n, dtype=Ad.dtype, device=Ad.device)
-    L = torch.linalg.cholesky(eye + Ad.T @ Ad)
+    K = eye + Ad.T @ Ad
+    if P is not None:
+        K = K + P
+    L = torch.linalg.cholesky(K)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     Kinv = Linv.T @ Linv
     t_x = torch.mv(Kinv, c - torch.mv(Ad.T, b))
@@ -167,12 +180,14 @@ def smw_solve(factor, A, b, c, u):
     return torch.cat([wx, wy, wt[None]])
 
 
-def dense_q(A, b, c):
+def dense_q(A, b, c, P=None):
     """Materialize I + Q (dim × dim)."""
     Ad = _dense(A)
     m, n = Ad.shape
     dim = n + m + 1
     M = torch.eye(dim, dtype=Ad.dtype, device=Ad.device)
+    if P is not None:
+        M[:n, :n] += P
     M[:n, n:n + m] = Ad.T
     M[n:n + m, :n] = -Ad
     M[:n, n + m] = c
@@ -182,7 +197,7 @@ def dense_q(A, b, c):
     return M
 
 
-def jacobi_inv_diag_split(A, b, c):
+def jacobi_inv_diag_split(A, b, c, P=None):
     """Jacobi preconditioner diag((I+Q)ᵀ(I+Q))⁻¹ as split (x, y, τ) parts,
     from A's squared products (an operator) or its squares (a tensor)."""
     m, n = A.shape
@@ -193,10 +208,18 @@ def jacobi_inv_diag_split(A, b, c):
         col_a = torch.sum(A * A, dim=0)
         row_a = torch.sum(A * A, dim=1)
     dx = 1.0 + col_a + c * c
+    if P is not None:
+        dx = dx + 2.0 * torch.diagonal(P) + torch.sum(P * P, dim=0)
     dy = 1.0 + row_a + b * b
     dtau = 1.0 + torch.dot(c, c) + torch.dot(b, b)
     return (1.0 / torch.clamp(dx, min=1e-8), 1.0 / torch.clamp(dy, min=1e-8),
             1.0 / torch.clamp(dtau, min=1e-8))
+
+
+def jacobi_inv_diag(A, b, c, P=None):
+    """Packed form of the Jacobi preconditioner."""
+    dx, dy, dtau = jacobi_inv_diag_split(A, b, c, P)
+    return torch.cat([dx, dy, dtau[None]])
 
 
 # Split (x, y, τ) tuple arithmetic for the CG; τ is a 0-d tensor.
@@ -452,15 +475,13 @@ def hsde_solve(
     u0=None,
     polish: bool = False,
 ):
-    """Run the HSDE DR iteration on the *scaled* problem.
+    """Run the HSDE DR iteration on the *scaled* problem; ``P`` is None or
+    a dense (n, n) PSD matrix of the scaled problem.
 
     Returns a dict: ``w`` and ``u`` (packed [x; y; τ]), ``status``,
     ``final_iter``, ``fp_resid``, ``r_pri``, ``r_dua`` and ``gap``, as the
     JAX function.  Unscaling happens in the caller.
     """
-    if P is not None:
-        raise NotImplementedError(
-            "a quadratic P in the embedding comes with slice 5 (QP and LP)")
     m, n = A.shape
     dt, dev = A.dtype, A.device
     dim = n + m + 1
@@ -468,19 +489,21 @@ def hsde_solve(
     Ky_dual = Ky.dual()
     b = torch.as_tensor(b, dtype=dt, device=dev)
     c = torch.as_tensor(c, dtype=dt, device=dev)
+    if P is not None:
+        P = torch.as_tensor(P, dtype=dt, device=dev)
 
     def T(v):
         return torch.as_tensor(v, dtype=dt, device=dev)
 
     if strategy == "smw":
-        factor = smw_factor if smw_factor is not None else smw_setup(A, b, c)
+        factor = smw_factor if smw_factor is not None else smw_setup(A, b, c, P)
 
         def lin_solve(ux, uy, ut, fp_resid):
             return _smw_solve_split(factor, A, b, c, ux, uy, ut)
     elif strategy in ("direct", "inverse"):
         # Cholesky of G = MᵀM + δI, then two refinement steps against the
         # unregularized MᵀM.
-        M = dense_q(A, b, c)
+        M = dense_q(A, b, c, P)
         delta = (1e-6 if dt == torch.float32 else 1e-12) * dim
         L = torch.linalg.cholesky(M.T @ M + delta * torch.eye(dim, dtype=dt, device=dev))
 
@@ -494,8 +517,8 @@ def hsde_solve(
                 w = w + solve_G(rhs - torch.mv(M.T, torch.mv(M, w)))
             return w[:n], w[n:n + m], w[n + m]
     elif strategy == "cg":
-        q_split, qt_split = _q_apply_split(A, b, c)
-        inv_diag = jacobi_inv_diag_split(A, b, c)
+        q_split, qt_split = _q_apply_split(A, b, c, P)
+        inv_diag = jacobi_inv_diag_split(A, b, c, P)
         cg_max = min(20000, 20 * dim)
 
         def lin_solve(ux, uy, ut, fp_resid):
@@ -524,8 +547,9 @@ def hsde_solve(
     cert_tol = abs_t + rel_t
     eps_d = T(1e-12)
 
-    plan = polish_plan(Ky, m, n, polish, sparse=bool(getattr(A, "is_sparse", False)),
-                       itemsize=b.element_size())
+    plan = None if P is not None else polish_plan(
+        Ky, m, n, polish, sparse=bool(getattr(A, "is_sparse", False)),
+        itemsize=b.element_size())
     burst = None if plan is None else _make_polish(
         A, b, c, Ky, Ky_dual, plan, abs_t, rel_t, sqm, sqn, b_norm, c_norm)
 
@@ -543,11 +567,16 @@ def hsde_solve(
         s_norm = _nrm(s_s)
         r_dua_cone = _nrm(y_s - Ky_dual.project(y_s))
         aty = armv(y_s)
+        c_dot_x = torch.dot(c, x_s)
+        if P is not None:
+            px = torch.mv(P, x_s)
+            aty = aty + px
+            c_dot_x = c_dot_x + torch.dot(x_s, px)
         r_dua = _nrm(aty + c)
         eps_pri = sqm * abs_t + rel_t * torch.maximum(b_norm, s_norm)
         eps_dua = sqn * abs_t + rel_t * torch.maximum(_nrm(aty), c_norm)
         eps_cone = sqm * abs_t + rel_t * torch.clamp(_nrm(y_s), min=1.0)
-        c_dot_x, b_dot_y = torch.dot(c, x_s), torch.dot(b, y_s)
+        b_dot_y = torch.dot(b, y_s)
         gap = torch.abs(c_dot_x + b_dot_y)
         # Scale-invariant gap test (the JAX package's deviation from the
         # reference): relative to max(1, gap, |c'x|, |b'y|).
@@ -584,6 +613,9 @@ def hsde_solve(
         infeas_sup = firm & (b_neg > cert_tol) & (aty_norm <= cert_tol * b_neg) \
             & (y_cone <= cert_tol * b_neg)
         unbdd_sup = firm & (c_neg > cert_tol) & (ax_dist <= cert_tol * c_neg)
+        if P is not None:
+            # The ray must also lie in P's null space.
+            unbdd_sup = unbdd_sup & (_nrm(torch.mv(P, wx)) <= cert_tol * c_neg)
         # Dominance: each Farkas product over the joint ray norm and its
         # own data norm; the competing one must be K_CERT_CROSS x weaker,
         # and if both hold the dominant one wins.

@@ -241,8 +241,19 @@ def test_forced_kernel_on_cpu_is_the_plain_loop():
 def test_not_ported_paths_raise():
     p = fx.lp_fixture()
     s = P.ConeSolver(p["A"], Ky=P.dims_to_cones(p["dims"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        s.solve(p["b"], p["c"], P=np.eye(p["A"].shape[1]))
+    # Slice 5's quadratic P is open: it solves; a P of the wrong shape, a
+    # negative diagonal, a P with K_x and an unknown qp_via are refused.
+    n = p["A"].shape[1]
+    assert s.solve(p["b"], p["c"], P=np.eye(n)).status == P.Status.SUCCESS
+    with pytest.raises(ValueError, match="P must be"):
+        s.solve(p["b"], p["c"], P=np.eye(n + 1))
+    with pytest.raises(ValueError, match="nonnegative"):
+        s.solve(p["b"], p["c"], P=-np.ones(n))
+    with pytest.raises(ValueError, match="K_x"):
+        P.ConeSolver(p["A"], Kx=[P.ConeConstraint(P.Cone.NON_NEG, [0])], device="cpu").solve(
+            p["b"], p["c"], P=np.eye(n))
+    with pytest.raises(ValueError, match="qp_via"):
+        P.ConeSolver(p["A"], device="cpu", qp_via="nope")
     # Slice 3's routes are open: the cg strategy, the CGLS projector, a
     # sparse A; an unknown projector is refused.
     assert P.ConeSolver(p["A"], device="cpu", strategy="cg").strategy == "cg"

@@ -583,3 +583,78 @@ def test_cg_cone_solve_on_the_card(cuda):
     assert dense["status"] == plain["status"] == 0
     assert abs(dense["iterations"] - plain["iterations"]) <= 2
     assert dense["optval"] == pytest.approx(plain["optval"], rel=1e-6)
+
+
+# -- slice 5: the QP front ends and the cone batches on the card --------------
+
+def _cvxqp1_s():
+    """CVXQP1_S (benchmarks/maros_meszaros.py) as solve_qp's arguments and
+    ConeSolver's lowering (equalities, then x ≤ ub, then −x ≤ −lb)."""
+    p = _chip_smoke().maros().cvxqp_problem(1, 100, 1.1590718e4)
+    n, m_eq = 100, 50
+    A_bar = np.vstack([p["A"], np.eye(n), -np.eye(n)])
+    b_bar = np.concatenate([p["rhs"], p["ub"], -p["lb"]])
+    cones = [P.ConeConstraint(P.Cone.ZERO, range(m_eq)),
+             P.ConeConstraint(P.Cone.NON_NEG, range(m_eq, A_bar.shape[0]))]
+    return p, A_bar, b_bar, cones
+
+
+def test_cone_kernel_on_a_qp_extension_matches_plain(cuda):
+    """K3 on CVXQP1_S's epigraph extension (one SOC segment of r + 2 rows),
+    f64, from the sub-solver's own init, against its plain version at
+    trajectory level."""
+    p, A_bar, b_bar, cones = _cvxqp1_s()
+    solver = P.ConeSolver(A_bar, Ky=cones, dtype=torch.float64, device=cuda)
+    before = ph.fused_hsde_solve.launches
+    res = solver.solve(b_bar, p["c"], P=p["Q"],
+                       settings=P.SolverSettings(polish=False, max_iter=600))
+    assert ph.fused_hsde_solve.launches == before + 1
+    sub = solver._qp_sub
+    r = sub.m - A_bar.shape[0] - 2
+    assert sub.Ky.constraints[-1].cone == P.Cone.SOC and len(sub.Ky.constraints[-1]) == r + 2
+    b_ext = np.concatenate([b_bar, [1.0, -1.0], np.zeros(r)])
+    c_ext = np.concatenate([p["c"], [1.0]])
+    args, At = _cone_args(cuda, sub._A_raw, b_ext, c_ext, sub.Ky.constraints, torch.float64,
+                          1e-4, 600)
+    out = ph.fused_hsde_solve(*args, At=At)
+    ref = ph.fused_hsde_solve_ref(*args)
+    torch.cuda.synchronize()
+    _assert_trajectory(out, ref, torch.float64)
+    assert int(res.final_iter) == int(out["final_iter"])
+
+
+def test_staged_qp_solve_on_the_card(cuda, monkeypatch):
+    """The staged route (the host IPM patched out): K3 segments of 500
+    iterations with the PDAS polish after each reach CVXQP1_S's published
+    optimum."""
+    import pogs_tpu_torch.solver.cone as cone_mod
+
+    monkeypatch.setattr(cone_mod.ConeSolver, "_try_qp_ipm", lambda self, *a: None)
+    p, _, _, _ = _cvxqp1_s()
+    before = ph.fused_hsde_solve.launches
+    r = P.solve_qp(p["Q"], p["c"], A=p["A"], b=p["rhs"], lb=p["lb"], ub=p["ub"],
+                   abs_tol=1e-6, rel_tol=1e-6, max_iter=40000, dtype="float64", device=cuda)
+    segments = ph.fused_hsde_solve.launches - before
+    assert r["status"] == 0 and segments >= 1
+    assert r["iterations"] <= segments * cone_mod.K_QP_SEGMENT_ITERS
+    assert abs(r["optval"] - 1.1590718e4) <= 1e-6 * 1.1590718e4
+
+
+def test_batched_cone_lanes_match_single_solves(cuda):
+    """batched_cone_solve launches K3 once per lane, and each lane equals a
+    ConeSolver solve of its own b."""
+    problems, _ = _chip_smoke().cone_problems()
+    soc = problems.socp_ball(n=50, n_balls=4)
+    cones = P.dims_to_cones(soc["dims"])
+    K = 4
+    bs = soc["b"][None, :] * (1.0 + 0.02 * np.random.default_rng(8).standard_normal((K, 1)))
+    st = P.SolverSettings(abs_tol=1e-5, rel_tol=1e-5, max_iter=20000)
+    before = ph.fused_hsde_solve.launches
+    out = P.batched_cone_solve(soc["A"], bs, soc["c"], cones, settings=st, device=cuda)
+    assert ph.fused_hsde_solve.launches == before + K
+    for k in range(K):
+        r = P.ConeSolver(soc["A"], Ky=cones, settings=st, device=cuda).solve(bs[k], soc["c"])
+        assert r.status == P.Status.SUCCESS and int(out["status"][k]) == 0
+        assert int(r.final_iter) == int(out["iterations"][k])
+        lim = 1e-9 * max(1.0, float(r.x.abs().max()))
+        assert float((r.x - out["x"][k]).abs().max()) <= lim

@@ -261,16 +261,76 @@ def test_embedding_operators_match_jax():
     np.testing.assert_allclose((M @ w).numpy(), u, atol=1e-10)  # w = (I + Q)⁻¹ u
 
 
+def _psd(n, kind, seed=12):
+    """A dense PSD P, or a diagonal one as a dense matrix."""
+    rng = np.random.default_rng(seed)
+    if kind == "diagonal":
+        return np.diag(rng.uniform(0.2, 2.0, n))
+    M = rng.standard_normal((n, n))
+    return M @ M.T / n + 0.1 * np.eye(n)
+
+
+@pytest.mark.parametrize("strategy", ["smw", "direct", "cg"])
+@pytest.mark.parametrize("kind", ["dense", "diagonal"])
+def test_hsde_solve_with_P_matches_jax(kind, strategy):
+    """P in the embedding (Q's x block, the Gram operator, the check and the
+    unboundedness test), against the JAX loop's ``hsde_solve(P=…)``.  smw and
+    direct at trajectory level (f64: the same status and iterations, w
+    within 1e-9); cg, whose inner solves stop at a residual-tied tolerance,
+    as tests/test_torch_sparse.py holds it: the same status and iterations,
+    w within 2e-5·max(1, ‖w‖∞), over a short run (its eager PCG is slow)."""
+    A, b, c, cones = _mixed_lp_socp()
+    J, K = _sets(cones, A.shape[0])
+    Pm = _psd(A.shape[1], kind)
+    kw = {"abs_tol": 1e-7, "rel_tol": 1e-7, "max_iter": 60 if strategy == "cg" else 3000,
+          "strategy": strategy}
+    ref = j_hsde(jnp.asarray(A), jnp.asarray(b), jnp.asarray(c), J, P=jnp.asarray(Pm), **kw)
+    out = hsde_solve(_t(A, "f64"), _t(b, "f64"), _t(c, "f64"), K, P=_t(Pm, "f64"), **kw)
+    if strategy == "cg":
+        assert int(out["status"]) == int(ref["status"])
+        assert int(out["final_iter"]) == int(ref["final_iter"])
+        w_ref = np.asarray(ref["w"])
+        np.testing.assert_allclose(out["w"].numpy(), w_ref,
+                                   atol=2e-5 * max(1.0, np.abs(w_ref).max()))
+        return
+    _assert_w(np.asarray(ref["w"]), out["w"].numpy(), ref, out, "f64")
+    for key in ("u", "r_pri", "r_dua", "gap", "fp_resid"):
+        np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]), atol=1e-9)
+
+
+def test_embedding_operators_with_P_match_jax():
+    """Q, Qᵀ, the SMW factor, I + Q and the Jacobi preconditioner with P."""
+    from pogs_tpu.solver.hsde import (make_q_matvec as j_q, dense_q as j_dense_q,
+                                      jacobi_inv_diag as j_jac)
+    from pogs_tpu_torch.solver.hsde import make_q_matvec, smw_setup, dense_q, jacobi_inv_diag
+
+    A, b, c, _ = _mixed_lp_socp()
+    m, n = A.shape
+    Pm = _psd(n, "dense")
+    u = np.random.default_rng(9).standard_normal(n + m + 1)
+    Aj, bj, cj, uj, Pj = (jnp.asarray(v) for v in (A, b, c, u, Pm))
+    At, bt, ct, ut, Pt = (torch.tensor(v) for v in (A, b, c, u, Pm))
+    for mine, ref in zip(make_q_matvec(At, bt, ct, Pt), j_q(Aj, bj, cj, Pj)):
+        np.testing.assert_allclose(mine(ut).numpy(), np.asarray(ref(uj)), atol=1e-12)
+    fac, jfac = smw_setup(At, bt, ct, Pt), j_smw(Aj, bj, cj, Pj)
+    for key in ("Kinv", "t_x", "t_y", "s_den"):
+        np.testing.assert_allclose(fac[key].numpy(), np.asarray(jfac[key]), atol=1e-12)
+    np.testing.assert_allclose(dense_q(At, bt, ct, Pt).numpy(),
+                               np.asarray(j_dense_q(Aj, bj, cj, Pj)), atol=0)
+    np.testing.assert_allclose(jacobi_inv_diag(At, bt, ct, Pt).numpy(),
+                               np.asarray(j_jac(Aj, bj, cj, Pj)), atol=1e-14)
+
+
 def test_strategy_errors():
     A, b, c, cones = _lp()
     _, K = _sets(cones, A.shape[0])
     args = (_t(A, "f64"), _t(b, "f64"), _t(c, "f64"), K)
-    # The cg strategy runs (slice 3); a quadratic P and an unknown strategy
-    # are refused.
+    # The cg strategy runs (slice 3), and so does a quadratic P (slice 5);
+    # an unknown strategy is refused.
     out = hsde_solve(*args, strategy="cg", max_iter=20)
     assert int(out["final_iter"]) == 20 and bool(torch.isfinite(out["w"]).all())
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        hsde_solve(*args, P=torch.eye(A.shape[1], dtype=torch.float64))
+    out = hsde_solve(*args, P=torch.eye(A.shape[1], dtype=torch.float64), max_iter=20)
+    assert int(out["final_iter"]) == 20 and bool(torch.isfinite(out["w"]).all())
     with pytest.raises(ValueError):
         hsde_solve(*args, strategy="nope")
 

@@ -36,7 +36,8 @@ def test_settings_defaults_match():
 def test_import_pulls_in_no_jax():
     code = ("import sys, pogs_tpu_torch, pogs_tpu_torch.parallel, pogs_tpu_torch.cones, "
             "pogs_tpu_torch.solver.hsde, pogs_tpu_torch.solver.cone, pogs_tpu_torch.api.cone, "
-            "pogs_tpu_torch.ops.fused_hsde; "
+            "pogs_tpu_torch.ops.fused_hsde, pogs_tpu_torch.api.qp, pogs_tpu_torch.solver.qp_ipm, "
+            "pogs_tpu_torch.solver.qp_polish, pogs_tpu_torch.utils.qps; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'pogs_tpu' or m.startswith('pogs_tpu.')]; "
             "assert not bad, bad")
