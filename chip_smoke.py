@@ -109,9 +109,26 @@ Phases, each printing one JSON line of its own:
      every lane, SUCCESS within 1e-6, and on lane 0, the lane with the
      most segments and the unpolished lanes K3 against the plain version
      (the same status and segment totals);
- 21. solve_qps on tests/data/HS21.QPS: SUCCESS, objective −99.96.
+ 21. solve_qps on tests/data/HS21.QPS: SUCCESS, objective −99.96;
+ 22. the differentiable graph-form layers in f64: diff_lasso on the bench
+     lasso at the layer's defaults (one K1 launch per forward, the forward
+     held to the eager one, dλ and a directional derivative in A against
+     central differences through K1 forwards), at 2000x1000 (the gmres
+     route) against the dense route, and diff_qp (n = 100, 50
+     inequalities, 50 equalities) on a batch of 16 q (16 K1 launches, each
+     element equal to its own call, dx/dq against differences); each with
+     its forward (K1 ms) and its backward split into the fixed-point
+     Jacobian, the linear solve and the parameter VJP (CUDA events);
+ 23. the differentiable cone layer in f64: diff_cone_solve on socp_ball
+     804x200 (one K3 launch per forward, held to the eager forward at tol
+     1e-4; the b gradient against central differences through K3 forwards
+     at tol 1e-7), the exp-primal fixture (K3; optimum e), and lp_ineq
+     1100x300 with the default polish (the eager loop, no K3), timed as in
+     22.
 Phases 14 to 16 run with the launch counts reset, and must launch K1 and
-K3 (the densified routes); so do phases 17 to 21, which must launch K3.  Then the kernels' summary line, the card's name and power limit, and last
+K3 (the densified routes); so do phases 17 to 21, which must launch K3,
+and phases 22 and 23, which must launch K1 and K3.  Then the kernels'
+summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Exits 1 when
@@ -2338,6 +2355,360 @@ def phase_qps(torch, P):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Slice 6: the differentiable layers.  Each forward solve is one K1 launch
+# (graph form) or one K3 launch (cone form, SOC / exponential cones); the
+# backward pass is dense linear algebra outside the kernels: the fixed-point
+# Jacobian (torch.func.jacfwd) and its solve, or GMRES on vector-Jacobian
+# products, then one vector-Jacobian product for the parameters.
+# ---------------------------------------------------------------------------
+
+DIFF_PARTS = ("fixed_point_jacobian", "adjoint_solve", "param_vjp")
+
+
+class LayerTimer:
+    """Inside the block, the solve kernels that the layers' forward passes
+    launch and the three parts of the backward pass (api/diff.py's
+    fixed_point_jacobian, adjoint_solve and param_vjp, which api/diff_cone.py
+    imports) are bracketed by CUDA events."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.events = {key: [] for key in ("k1", "k3") + DIFF_PARTS}
+
+    def _timed(self, fn, key):
+        torch = self.torch
+
+        def timed(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            stop.record()
+            self.events[key].append((start, stop))
+            return out
+
+        return timed
+
+    @contextlib.contextmanager
+    def on(self):
+        import pogs_tpu_torch.api.diff as diff_mod
+        import pogs_tpu_torch.api.diff_cone as cone_diff_mod
+        import pogs_tpu_torch.solver.cone as cone_mod
+        import pogs_tpu_torch.solver.graph as graph_mod
+
+        targets = [(graph_mod, "fused_admm_loop", "k1"), (cone_mod, "fused_hsde_solve", "k3")]
+        targets += [(mod, part, part) for mod in (diff_mod, cone_diff_mod) for part in DIFF_PARTS]
+        with contextlib.ExitStack() as stack:
+            for mod, name, key in targets:
+                stack.enter_context(patched(mod, name, self._timed(getattr(mod, name), key)))
+            yield self
+
+    def ms(self):
+        self.torch.cuda.synchronize()
+        return {key: float(sum(a.elapsed_time(b) for a, b in ev))
+                for key, ev in self.events.items()}
+
+
+def layer_run(torch, fn, args, loss_of_x):
+    """A forward and a backward of a layer, twice: the first call's host
+    times (cold: the process's first use of a shape pays cuSOLVER and
+    torch.func set-up), then the second's, with the CUDA-event split of its
+    kernel launches and backward parts and the launches of its forward.
+    Returns (x, aux, grads, times) of the second call."""
+    times = {}
+    for run in ("first", "warm"):
+        timer = LayerTimer(torch)
+        leaves = [a.detach().clone().requires_grad_() for a in args]
+        before = read_counts()
+        with timer.on():
+            t0 = time.perf_counter()
+            x, aux = fn(*leaves)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            after = read_counts()
+            grads = torch.autograd.grad(loss_of_x(x), leaves)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        times[f"{run}_forward_ms"] = (t1 - t0) * 1e3
+        times[f"{run}_backward_ms"] = (t2 - t1) * 1e3
+    ev = timer.ms()
+    times.update({
+        "k1_launches": after["fused_admm_loop"] - before["fused_admm_loop"],
+        "k3_launches": after["fused_hsde_solve"] - before["fused_hsde_solve"],
+        "k1_ms": ev["k1"], "k3_ms": ev["k3"], "jacobian_ms": ev["fixed_point_jacobian"],
+        "linear_solve_ms": ev["adjoint_solve"], "param_vjp_ms": ev["param_vjp"]})
+    return x.detach(), aux, [g.detach() for g in grads], times
+
+
+def central_diff(loss, p, V, eps):
+    """(loss(p + eps V) − loss(p − eps V)) / (2 eps), the two loss values
+    host floats."""
+    return (float(loss(p + eps * V)) - float(loss(p - eps * V))) / (2 * eps)
+
+
+def forward_match(x, aux, x_e, aux_e):
+    """The layer's forward against the eager forward: statuses equal,
+    iterations within 2, x within 1e-8·max(1, ‖x‖∞)."""
+    err = float((x - x_e).abs().max())
+    lim = 1e-8 * max(1.0, float(x_e.abs().max()))
+    rec = {"status": int(aux["status"]), "status_eager": int(aux_e["status"]),
+           "iterations": int(aux["iterations"]), "iterations_eager": int(aux_e["iterations"]),
+           "x_max_abs_err": err, "x_limit": lim}
+    ok = (rec["status"] == rec["status_eager"] == 0
+          and abs(rec["iterations"] - rec["iterations_eager"]) <= 2 and err <= lim)
+    return rec, ok
+
+
+def phase_diff_graph(torch, P):
+    """diff_lasso on the bench lasso (500x300, f64, the layer's defaults):
+    one K1 launch per forward, the forward held to the eager one, dλ and a
+    directional derivative in A of ½‖x‖² against central differences through
+    K1 forwards; diff_lasso at 2000x1000 (the gmres route), its forward held
+    to the eager one and its gradient to linear_solver="dense"; an
+    OptNet-style diff_qp (n = 100, 50 inequalities, 50 equalities) on a batch
+    of 16 q, one K1 launch per element, each element its own single call and
+    the eager forward, dx/dq of one element against differences."""
+    from pogs_tpu_torch.api.diff import diff_lasso, diff_qp
+    from pogs_tpu_torch.linalg.gmres import gmres
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    S = P.SolverSettings
+    defaults = dict(abs_tol=1e-6, rel_tol=1e-6, max_iter=20000)  # make_diff_solver's
+    rng = np.random.default_rng(22)
+
+    def k1():
+        return read_counts()["fused_admm_loop"]
+
+    def half_sq(x):
+        return 0.5 * torch.sum(x * x)
+
+    A32, b32, lam = make_lasso(500, 300)
+    A = torch.as_tensor(A32, dtype=f64, device=dev)
+    b = torch.as_tensor(b32, dtype=f64, device=dev)
+    lam_t = torch.tensor(lam, dtype=f64, device=dev)
+    x, aux, (g_A, _, g_lam), times = layer_run(torch, diff_lasso, (A, b, lam_t), half_sq)
+    rec = {"phase": "diff_graph", "problem": "bench lasso", "shape": [500, 300],
+           "dtype": "float64", "route": "dense", **times}
+    ok = times["k1_launches"] == 1
+    before = k1()
+    x_e, aux_e = diff_lasso(A, b, lam_t, settings=S(use_fused=False, **defaults))
+    match, ok_m = forward_match(x, aux, x_e, aux_e)
+    rec["vs_eager"] = match
+    ok = ok and ok_m and k1() == before
+
+    def loss(A_, lam_):
+        return half_sq(diff_lasso(A_, b, lam_)[0])
+
+    before = k1()
+    eps = 1e-3 * lam
+    fd_lam = central_diff(lambda l: loss(A, l), lam_t, torch.ones_like(lam_t), eps)
+    V = torch.as_tensor(rng.standard_normal(A.shape), dtype=f64, device=dev)
+    fd_A = central_diff(lambda A_: loss(A_, lam_t), A, V, 1e-5)
+    g_A_V = float(torch.sum(g_A * V))
+    rec["fd"] = {"d_lambda": float(g_lam), "d_lambda_fd": fd_lam, "d_A_V": g_A_V,
+                 "d_A_V_fd": fd_A, "k1_launches": k1() - before}
+    ok = (ok and rec["fd"]["k1_launches"] == 4
+          and abs(float(g_lam) - fd_lam) <= 1e-3 * abs(fd_lam)
+          and abs(g_A_V - fd_A) <= 1e-3 * abs(fd_A))
+
+    # 2000x1000: m + n = 3000 > 2048, the gmres route; against the dense one.
+    A2_32, b2_32, lam2 = make_lasso(2000, 1000)
+    A2 = torch.as_tensor(A2_32, dtype=f64, device=dev)
+    b2 = torch.as_tensor(b2_32, dtype=f64, device=dev)
+    lam2_t = torch.tensor(lam2, dtype=f64, device=dev)
+    x2, aux2, (g2,), times2 = layer_run(torch, lambda l: diff_lasso(A2, b2, l), (lam2_t,),
+                                        half_sq)
+    restarts = gmres.restarts
+    before = k1()
+    x2_e, aux2_e = diff_lasso(A2, b2, lam2_t, settings=S(use_fused=False, **defaults))
+    match2, ok_m2 = forward_match(x2, aux2, x2_e, aux2_e)
+    ok = ok and ok_m2 and k1() == before
+    _, _, (g2_dense,), times2_dense = layer_run(
+        torch, lambda l: diff_lasso(A2, b2, l, linear_solver="dense"), (lam2_t,), half_sq)
+    rel = abs(float(g2) - float(g2_dense)) / abs(float(g2_dense))
+    rec["gmres"] = {"shape": [2000, 1000], "status": int(aux2["status"]),
+                    "iterations": int(aux2["iterations"]), "gmres_restarts": restarts,
+                    "d_lambda": float(g2), "d_lambda_dense": float(g2_dense), "rel_err": rel,
+                    "vs_eager": match2, **times2, "dense": times2_dense}
+    ok = (ok and int(aux2["status"]) == 0 and times2["k1_launches"] == 1
+          and times2_dense["k1_launches"] == 1 and rel <= 1e-6)
+
+    # OptNet-style QP layer on a batch of 16 q.
+    n, mi, me, K = 100, 50, 50, 16
+    M = rng.standard_normal((n, n))
+    Pm = M @ M.T / n + np.eye(n)
+    G = rng.standard_normal((mi, n))
+    Aeq = rng.standard_normal((me, n))
+    x0 = rng.standard_normal(n)
+    h = G @ x0 + rng.random(mi) + 0.1
+    beq = Aeq @ x0
+    qs = rng.standard_normal((K, n))
+    Pt, Gt, ht, At, bt, qt = (torch.as_tensor(v, dtype=f64, device=dev)
+                              for v in (Pm, G, h, Aeq, beq, qs))
+
+    def qp(q_, settings=None):
+        return diff_qp(Pt, q_, G=Gt, h=ht, A=At, b=bt, settings=settings)
+
+    xq, auxq, (gq,), times_q = layer_run(torch, qp, (qt,), half_sq)
+    worst = 0.0
+    iters_equal = True
+    for i in range(K):
+        x_i, aux_i = qp(qt[i])
+        worst = max(worst, float((x_i - xq[i]).abs().max()))
+        iters_equal = iters_equal and int(aux_i["iterations"]) == int(auxq["iterations"][i])
+    # K1 on the QP's prox mix (SQUARE rows from Lᵀ, shifted INDLE0 and INDEQ0
+    # rows, ZERO with a linear term) against the eager loop, lane by lane.
+    before = k1()
+    xq_e, auxq_e = qp(qt, settings=S(use_fused=False, **defaults))
+    lanes_e = [forward_match(xq[i], {k: auxq[k][i] for k in ("status", "iterations")},
+                             xq_e[i], {k: auxq_e[k][i] for k in ("status", "iterations")})
+               for i in range(K)]
+    eager_ok = all(ok_i for _, ok_i in lanes_e) and k1() == before
+    Vq = torch.as_tensor(rng.standard_normal(n), dtype=f64, device=dev)
+    lane = 3
+    fd_q = central_diff(lambda q_: half_sq(qp(q_)[0]), qt[lane], Vq, 1e-5)
+    g_q_V = float(gq[lane] @ Vq)
+    rec["qp"] = {"n": n, "inequalities": mi, "equalities": me, "batch": K,
+                 "status": auxq["status"].cpu().tolist(),
+                 "iterations": auxq["iterations"].cpu().tolist(),
+                 "vs_single_x_max_abs_err": worst,
+                 "vs_eager_x_max_abs_err": max(r["x_max_abs_err"] for r, _ in lanes_e),
+                 "vs_eager_iterations": auxq_e["iterations"].cpu().tolist(),
+                 "vs_eager_ok": eager_ok, "lane": lane, "d_q_V": g_q_V,
+                 "d_q_V_fd": fd_q, **times_q}
+    ok = (ok and times_q["k1_launches"] == K and bool((auxq["status"] == 0).all())
+          and iters_equal and eager_ok
+          and worst <= 1e-12 * max(1.0, float(xq.abs().max()))
+          and abs(g_q_V - fd_q) <= 1e-3 * abs(fd_q))
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("differentiable graph-form layers")
+    return rec
+
+
+def phase_diff_cone(torch, P):
+    """diff_cone_solve on socp_ball 804x200 f64: one K3 launch per forward,
+    the forward held to the eager one (tol 1e-4), and at tol 1e-7 the
+    gradient w.r.t. b in one direction against central differences through
+    K3 forwards; the exp-primal conic fixture through K3 (optimum e, the b
+    gradient against differences); lp_ineq 1100x300 with the default polish,
+    which runs the eager loop and launches no K3 (optval against HiGHS)."""
+    from scipy.optimize import linprog
+
+    from pogs_tpu_torch.api.diff_cone import diff_cone_solve
+
+    dev, f64 = torch.device("cuda"), torch.float64
+    S = P.SolverSettings
+    problems, fx = cone_problems()
+    rng = np.random.default_rng(23)
+
+    def k3():
+        return read_counts()["fused_hsde_solve"]
+
+    def tensors(p):
+        return tuple(torch.as_tensor(p[k], dtype=f64, device=dev) for k in ("A", "b", "c"))
+
+    def half_sq(x):
+        return 0.5 * torch.sum(x * x)
+
+    recs = []
+    ok = True
+    # socp_ball: the forward against the eager loop at the benchmarks' tol.
+    soc = problems.socp_ball()
+    cones = P.dims_to_cones(soc["dims"])
+    A, b, c = tensors(soc)
+    st = S(max_iter=CONE_MAX_ITER, **CONE_TOL)
+    x, aux, (g_b,), times = layer_run(
+        torch, lambda b_: diff_cone_solve(A, b_, c, cones, settings=st), (b,), half_sq)
+    rec = {"case": "socp_ball", "shape": list(A.shape), "tol": CONE_TOL["abs_tol"], **times}
+    ok_c = times["k3_launches"] == 1
+    before = k3()
+    x_e, aux_e = diff_cone_solve(A, b, c, cones, settings=st.replace(use_fused=False))
+    rec["vs_eager"], ok_m = forward_match(x, aux, x_e, aux_e)
+    ok_c = ok_c and ok_m and k3() == before
+    # The gradient against differences at a tolerance where both agree.
+    st_g = S(abs_tol=1e-7, rel_tol=1e-7, max_iter=200000)
+
+    def soc_loss(b_):
+        return half_sq(diff_cone_solve(A, b_, c, cones, settings=st_g)[0])
+
+    _, aux_g, (g_b,), times_g = layer_run(
+        torch, lambda b_: diff_cone_solve(A, b_, c, cones, settings=st_g), (b,), half_sq)
+    V = torch.as_tensor(rng.standard_normal(b.shape), dtype=f64, device=dev)
+    before = k3()
+    fd = central_diff(soc_loss, b, V, 1e-4)
+    g_V = float(g_b @ V)
+    rec["gradient"] = {"tol": 1e-7, "status": int(aux_g["status"]),
+                       "iterations": int(aux_g["iterations"]), "d_b_V": g_V, "d_b_V_fd": fd,
+                       "fd_k3_launches": k3() - before, **times_g}
+    ok_c = (ok_c and int(aux_g["status"]) == 0 and times_g["k3_launches"] == 1
+            and rec["gradient"]["fd_k3_launches"] == 2
+            and abs(g_V - fd) <= 1e-3 * abs(fd))
+    rec["ok"] = bool(ok_c)
+    recs.append(rec)
+    ok = ok and ok_c
+
+    # The exponential-cone fixture: optimum z* = e.
+    p = fx.exp_primal_fixture()
+    cones = P.dims_to_cones(p["dims"])
+    A, b, c = tensors(p)
+    st = S(max_iter=CONE_MAX_ITER, abs_tol=1e-8, rel_tol=1e-8)
+
+    def exp_loss(b_):
+        return half_sq(diff_cone_solve(A, b_, c, cones, settings=st)[0])
+
+    x, aux, (g_b,), times = layer_run(
+        torch, lambda b_: diff_cone_solve(A, b_, c, cones, settings=st), (b,), half_sq)
+    V = torch.as_tensor(rng.standard_normal(b.shape), dtype=f64, device=dev)
+    fd = central_diff(exp_loss, b, V, 1e-5)
+    g_V = float(g_b @ V)
+    rec = {"case": "exp_primal", "shape": list(A.shape), "status": int(aux["status"]),
+           "iterations": int(aux["iterations"]), "optval": float(aux["optval"]),
+           "optval_ref": p["optval"], "d_b_V": g_V, "d_b_V_fd": fd, **times}
+    ok_c = (times["k3_launches"] == 1 and rec["status"] == 0
+            and abs(rec["optval"] - p["optval"]) <= 1e-6 * p["optval"]
+            and abs(g_V - fd) <= 1e-3 * max(abs(fd), 1e-6))
+    rec["ok"] = bool(ok_c)
+    recs.append(rec)
+    ok = ok and ok_c
+
+    # lp_ineq with the default polish: the eager loop, no K3 launch.  The
+    # polished vertex is accurate to about 1e-9 and some rows are nearly
+    # degenerate (slack and dual both near 2e-5), so central differences
+    # scatter by about 5e-4 of their value with the step (1e-7 to 1e-4, a
+    # CPU run of this phase): the gradient is held to them within 5e-3.
+    lp = problems.lp_ineq()
+    cones = P.dims_to_cones(lp["dims"])
+    A, b, c = tensors(lp)
+    w = torch.as_tensor(rng.standard_normal(A.shape[1]), dtype=f64, device=dev)
+
+    def lp_loss(b_):
+        return torch.dot(w, diff_cone_solve(A, b_, c, cones)[0])
+
+    x, aux, (g_b,), times = layer_run(
+        torch, lambda b_: diff_cone_solve(A, b_, c, cones), (b,), lambda x_: torch.dot(w, x_))
+    V = torch.as_tensor(rng.standard_normal(b.shape), dtype=f64, device=dev)
+    fd = central_diff(lp_loss, b, V, 1e-5)
+    ref = float(linprog(lp["c"], A_ub=lp["A"], b_ub=lp["b"], bounds=(None, None),
+                        method="highs").fun)
+    rel = abs(float(aux["optval"]) - ref) / max(1.0, abs(ref))
+    g_V = float(g_b @ V)
+    rec = {"case": "lp_ineq_polish", "shape": list(A.shape), "status": int(aux["status"]),
+           "iterations": int(aux["iterations"]), "optval_rel_err_highs": rel,
+           "d_b_V": g_V, "d_b_V_fd": fd, **times}
+    ok_c = (rec["status"] == 0 and times["k3_launches"] == 0 and times["k1_launches"] == 0
+            and rel <= 1e-6 and abs(g_V - fd) <= 5e-3 * max(abs(fd), 1e-6))
+    rec["ok"] = bool(ok_c)
+    recs.append(rec)
+    ok = ok and ok_c
+    emit({"phase": "diff_cone", "dtype": "float64", "cases": recs, "ok": bool(ok)})
+    if not ok:
+        raise AssertionError("differentiable cone layer")
+    return recs
+
+
 def main() -> int:
     import torch
 
@@ -2382,6 +2753,14 @@ def main() -> int:
     emit({"phase": "qp_path_launches", **qp_launches})
     if not qp_launches["fused_hsde_solve"]:
         raise AssertionError(f"the QP path launched {qp_launches}")
+    # Slice 6's path: the differentiable layers' forwards launch K1 and K3.
+    reset_counts()
+    phase_diff_graph(torch, P)
+    phase_diff_cone(torch, P)
+    diff_launches = read_counts()
+    emit({"phase": "diff_path_launches", **diff_launches})
+    if not diff_launches["fused_admm_loop"] or not diff_launches["fused_hsde_solve"]:
+        raise AssertionError(f"the differentiable layers launched {diff_launches}")
     if "jax" in sys.modules or "pogs_tpu" in sys.modules:
         raise AssertionError("the port imported jax or pogs_tpu")
     # No single PyTorch call computes an ADMM or HSDE solve: library_ms null.
@@ -2392,7 +2771,7 @@ def main() -> int:
         "name": "fused_admm_loop", "route": "cuda",
         "source": "pogs_tpu_torch/csrc/fused_admm.cu",
         "replaces": "pogs_tpu/ops/fused_admm.py:440",
-        "launches": launches,
+        "launches": launches + diff_launches["fused_admm_loop"],
         "max_abs_err": max(summary["max_abs_err"].values()),
         "ms": summary["ms"], "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
@@ -2419,7 +2798,8 @@ def main() -> int:
         "name": "fused_hsde_solve", "route": "cuda",
         "source": "pogs_tpu_torch/csrc/fused_hsde.cu",
         "replaces": "pogs_tpu/ops/fused_hsde.py:555",
-        "launches": launches_h + qp_launches["fused_hsde_solve"],
+        "launches": (launches_h + qp_launches["fused_hsde_solve"]
+                     + diff_launches["fused_hsde_solve"]),
         "max_abs_err": summary_h["max_abs_err"],
         "ms": summary_h["ms"], "plain_ms": summary_h["plain_ms"],
         "bound_ms": summary_h["bound_ms"], "bound_by": summary_h["bound_by"],

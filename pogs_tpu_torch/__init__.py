@@ -15,7 +15,8 @@ by Douglas–Rachford on the homogeneous self-dual embedding (K_x empty) or
 by the graph-form loop with the cone objective; a quadratic objective by
 the host IPM or an epigraph SOC through the embedding, with an active-set
 polish (``solve_qp``, ``solve_lp``, ``solve_qps`` front the QP and LP
-forms).  On a CUDA device a dense
+forms; ``diff_*`` are the same solves as differentiable layers, with
+implicit gradients).  On a CUDA device a dense
 solve runs as one hand-written CUDA kernel (``ops/fused_admm.py`` for the
 graph form, ``ops/fused_hsde.py`` for the cone form) and a λ-sweep as
 another (``ops/fused_admm_batch.py``); elsewhere they run as eager torch
@@ -51,6 +52,16 @@ from pogs_tpu_torch.api.qp import solve_lp, solve_qp, solve_qps
 from pogs_tpu_torch.parallel.batch import (
     batched_cone_solve, batched_qp_solve, warm_path_cone_solve,
 )
+from pogs_tpu_torch.api.diff import (
+    make_diff_solver,
+    diff_lasso,
+    diff_ridge,
+    diff_elastic_net,
+    diff_logistic,
+    diff_nonneg_ls,
+    diff_qp,
+)
+from pogs_tpu_torch.api.diff_cone import make_diff_cone_solver, diff_cone_solve
 from pogs_tpu_torch.utils.interop import init_state_from_numpy
 
 __version__ = "0.1.0"
@@ -89,5 +100,14 @@ __all__ = [
     "batched_cone_solve",
     "warm_path_cone_solve",
     "batched_qp_solve",
+    "make_diff_solver",
+    "diff_lasso",
+    "diff_ridge",
+    "diff_elastic_net",
+    "diff_logistic",
+    "diff_nonneg_ls",
+    "diff_qp",
+    "make_diff_cone_solver",
+    "diff_cone_solve",
     "init_state_from_numpy",
 ]

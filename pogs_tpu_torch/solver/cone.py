@@ -361,7 +361,27 @@ class ConeSolver:
         st = self._init_state
         return smw_factor_from(st["A"], st["factor"]["op"], b_s, c_s)
 
-    def _solve_hsde(self, b_orig, c_orig, settings, u0):
+    def cold_solve(self, b, c, settings: Optional[SolverSettings] = None) -> dict:
+        """One cold HSDE solve of the tensors b (m,) and c (n,) on this init,
+        with no host sync: the counterpart of the JAX differentiable cone
+        layer's ``_pure_solve`` (``api/diff_cone.py`` is its caller).
+
+        Returns ``x, y, nu, s, optval, status, iterations`` as tensors.  Where
+        τ ≈ 0 (an infeasibility or unboundedness certificate) x, ν and s are
+        zero and y = b, as there: a certificate has no gradient.  SDP rows
+        come in the svec convention (``assume_svec=True``); no P.
+        """
+        if not self.use_hsde or self._needs_svec:
+            raise ValueError("cold_solve needs K_x empty and SDP rows in svec "
+                             "(assume_svec=True)")
+        self.init()
+        with highest_precision():
+            out = self._solve_hsde(b, c, settings or self.settings, None, rays=False)
+        return {"x": out["x"], "y": out["y"], "nu": out["nu"], "s": b - out["y"],
+                "optval": out["optval"], "status": out["status"].to(torch.int64).reshape(()),
+                "iterations": torch.as_tensor(out["final_iter"], device=b.device)}
+
+    def _solve_hsde(self, b_orig, c_orig, settings, u0, rays: bool = True):
         st = self._init_state
         A, d, e = st["A"], st["d"], st["e"]
         m, n = self.m, self.n
@@ -380,7 +400,8 @@ class ConeSolver:
                 rel_tol=settings.rel_tol, max_iter=settings.max_iter, smw_factor=fac,
                 use_anderson=settings.use_anderson, anderson_mem=settings.anderson_mem,
                 anderson_start=settings.anderson_start, u0=u0, polish=settings.polish)
-        # Unscale.  Where τ ≈ 0 the (unscaled) certificate ray comes back.
+        # Unscale.  Where τ ≈ 0 the (unscaled) certificate ray comes back, or
+        # with rays=False zeros for x, ν and s (y = b).
         w = out["w"]
         tau = w[n + m]
         tau_ok = tau > 1e-8
@@ -388,9 +409,13 @@ class ConeSolver:
         x_s = w[:n] / tau_safe
         y_s = w[n:n + m] / tau_safe
         s_orig = (b_s - matvecs(A)[0](x_s)) / d
-        x = torch.where(tau_ok, x_s * e, w[:n] * e)
-        y = torch.where(tau_ok, b_orig - s_orig, torch.zeros_like(s_orig))
-        nu = torch.where(tau_ok, y_s * d, w[n:n + m] * d)
+        if rays:
+            x_off, y_off, nu_off = w[:n] * e, torch.zeros_like(s_orig), w[n:n + m] * d
+        else:
+            x_off, y_off, nu_off = torch.zeros_like(x_s), b_orig, torch.zeros_like(y_s)
+        x = torch.where(tau_ok, x_s * e, x_off)
+        y = torch.where(tau_ok, b_orig - s_orig, y_off)
+        nu = torch.where(tau_ok, y_s * d, nu_off)
         return {"x": x, "y": y, "mu": torch.zeros_like(x), "nu": nu,
                 "optval": torch.dot(c_orig, x), "final_iter": out["final_iter"],
                 "status": out["status"], "r_pri": out["r_pri"], "r_dua": out["r_dua"],

@@ -11,7 +11,10 @@ within 5e-5·max(1, ‖·‖∞).  The cone kernel (K3) against its plain versio
 at trajectory level the same status, iterations within 2, w within
 1e-5·max(1, ‖w‖∞) in float32 and 1e-9·max(1, ‖w‖∞) in float64; float32
 runs of 800 or more plain-version iterations against the float64 solve
-(see ``test_cone_kernel_matches_plain``).
+(see ``test_cone_kernel_matches_plain``).  The differentiable layers in
+float64, their forwards through K1 and K3 against the eager forwards: the
+same status and iterations, x within 1e-12·max(1, ‖x‖∞), the gradients
+within rtol 1e-8.
 """
 
 import importlib.util
@@ -658,3 +661,103 @@ def test_batched_cone_lanes_match_single_solves(cuda):
         assert int(r.final_iter) == int(out["iterations"][k])
         lim = 1e-9 * max(1.0, float(r.x.abs().max()))
         assert float((r.x - out["x"][k]).abs().max()) <= lim
+
+
+# ---------------------------------------------------------------------------
+# The differentiable layers: forward solves through K1 and K3.
+# ---------------------------------------------------------------------------
+
+def _layer_grads(layer, args, w, fused):
+    """x, aux and the gradients of w·x w.r.t. every argument, with the
+    forward through the kernel (fused=None, on CUDA) or the eager loop."""
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    x, aux = layer(*leaves, fused)
+    grads = torch.autograd.grad(torch.dot(w, x), leaves)
+    return x.detach(), aux, grads
+
+
+def _assert_routes_agree(kernel, eager):
+    (x_k, aux_k, g_k), (x_e, aux_e, g_e) = kernel, eager
+    assert int(aux_k["status"]) == int(aux_e["status"]) == 0
+    assert int(aux_k["iterations"]) == int(aux_e["iterations"])
+    assert float((x_k - x_e).abs().max()) <= 1e-12 * max(1.0, float(x_e.abs().max()))
+    for a, b in zip(g_k, g_e):
+        torch.testing.assert_close(a, b, rtol=1e-8, atol=1e-10)
+
+
+def test_diff_lasso_forward_through_k1_matches_eager(cuda):
+    """diff_lasso in f64: one K1 launch per forward, the same solve as the
+    eager loop on the card, and the same gradients w.r.t. A, b and λ."""
+    from pogs_tpu_torch.api.diff import diff_lasso
+
+    rng = np.random.default_rng(5)
+    A = torch.as_tensor(rng.standard_normal((120, 60)), device=cuda)
+    b = torch.as_tensor(rng.standard_normal(120), device=cuda)
+    lam = 0.2 * (A.T @ b).abs().max()
+    w = torch.as_tensor(rng.standard_normal(60), device=cuda)
+    st = P.SolverSettings(abs_tol=1e-8, rel_tol=1e-8, max_iter=20000)
+
+    def layer(A_, b_, lam_, fused):
+        return diff_lasso(A_, b_, lam_, settings=st.replace(use_fused=fused))
+
+    before = pf.fused_admm_loop.launches
+    kernel = _layer_grads(layer, (A, b, lam), w, None)
+    assert pf.fused_admm_loop.launches == before + 1
+    eager = _layer_grads(layer, (A, b, lam), w, False)
+    assert pf.fused_admm_loop.launches == before + 1
+    _assert_routes_agree(kernel, eager)
+
+
+def test_diff_cone_solve_forward_through_k3_matches_eager(cuda):
+    """diff_cone_solve on socp_ball (n = 50) in f64: one K3 launch per
+    forward, the same solve as the eager loop, the same gradients w.r.t. A,
+    b and c."""
+    from pogs_tpu_torch.api.diff_cone import diff_cone_solve
+
+    problems, _ = _chip_smoke().cone_problems()
+    soc = problems.socp_ball(n=50, n_balls=4)
+    cones = P.dims_to_cones(soc["dims"])
+    A, b, c = (torch.as_tensor(soc[k], device=cuda) for k in ("A", "b", "c"))
+    w = torch.as_tensor(np.random.default_rng(6).standard_normal(A.shape[1]), device=cuda)
+
+    def layer(A_, b_, c_, fused):
+        return diff_cone_solve(A_, b_, c_, cones,
+                               settings=P.SolverSettings(abs_tol=1e-8, rel_tol=1e-8,
+                                                         max_iter=20000, use_fused=fused))
+
+    before = ph.fused_hsde_solve.launches
+    kernel = _layer_grads(layer, (A, b, c), w, None)
+    assert ph.fused_hsde_solve.launches == before + 1
+    eager = _layer_grads(layer, (A, b, c), w, False)
+    assert ph.fused_hsde_solve.launches == before + 1
+    _assert_routes_agree(kernel, eager)
+
+
+def test_diff_qp_forward_through_k1_matches_eager(cuda):
+    """diff_qp (n = 30, 15 inequalities, 15 equalities) in f64: K1 on the
+    QP's prox mix (SQUARE rows from Lᵀ, shifted INDLE0 and INDEQ0 rows, ZERO
+    with a linear term), one launch per forward, the same solve as the eager
+    loop, the same gradients w.r.t. P, q, G, h, A and b."""
+    from pogs_tpu_torch.api.diff import diff_qp
+
+    rng = np.random.default_rng(7)
+    n, mi, me = 30, 15, 15
+    M = rng.standard_normal((n, n))
+    G = rng.standard_normal((mi, n))
+    Aeq = rng.standard_normal((me, n))
+    x0 = rng.standard_normal(n)
+    args = tuple(torch.as_tensor(v, device=cuda) for v in (
+        M @ M.T / n + np.eye(n), rng.standard_normal(n), G,
+        G @ x0 + rng.random(mi) + 0.1, Aeq, Aeq @ x0))
+    w = torch.as_tensor(rng.standard_normal(n), device=cuda)
+    st = P.SolverSettings(abs_tol=1e-8, rel_tol=1e-8, max_iter=20000)
+
+    def layer(P_, q_, G_, h_, A_, b_, fused):
+        return diff_qp(P_, q_, G=G_, h=h_, A=A_, b=b_, settings=st.replace(use_fused=fused))
+
+    before = pf.fused_admm_loop.launches
+    kernel = _layer_grads(layer, args, w, None)
+    assert pf.fused_admm_loop.launches == before + 1
+    eager = _layer_grads(layer, args, w, False)
+    assert pf.fused_admm_loop.launches == before + 1
+    _assert_routes_agree(kernel, eager)
