@@ -8,7 +8,8 @@ Phases, each printing one JSON line of its own:
      the torch and CUDA versions;
   2. build: nvcc builds the four kernels from pogs_tpu_torch/csrc/, one nvcc
      per source, started together (or says that a library was cached), with
-     each kernel's registers, shared memory and spills;
+     each kernel's registers, shared memory and spills, and beside them the
+     host C++ compiler builds the native runtime (pogs_tpu_torch.native);
   3. the solve kernel (K1) against its plain version (the eager loop) on the
      card, on the same scaled inputs from the port's init: tall bench lasso
      500x300, wide 300x500, logistic 200x100, nonneg LS with gap_stop,
@@ -124,11 +125,32 @@ Phases, each printing one JSON line of its own:
      1e-4; the b gradient against central differences through K3 forwards
      at tol 1e-7), the exp-primal fixture (K3; optimum e), and lp_ineq
      1100x300 with the default polish (the eager loop, no K3), timed as in
-     22.
+     22;
+ 24. profiling: the port's trace() (torch.profiler) around a warm one-shot
+     solve_lasso at the bench size (500x300 f32), which must hold a K1
+     kernel event, and around the bench diff_lasso's forward and backward
+     (phase 22's problem), each window's length, the union of its CUDA
+     kernels' time and the card's idle share; before any trace, equilibrate,
+     norm2_est and the projector's init at 500x300 timed one by one and in
+     sequence with device_time (CUDA events) and PhaseTimer's summary of
+     five one-shot solves (setup / init / solve / result); after the traces,
+     each part traced and the split again.  Traces go to chiprun_out/traces/;
+ 25. checkpoint / resume: the bench lasso solved with K1, save_state,
+     load_state into a fresh solver, solved again with K1 (SUCCESS within
+     max(3, first // 5) iterations, optval within 1e-5), and a checkpoint of
+     another matrix refused;
+ 26. the cvxpy plugin's path: solve_via_scs_data on socp_ball 804x200 f64 in
+     SCS form (one K3 launch), equal to solve_cone_problem on the same data
+     (status, iterations, x within 1e-12) and in the SCS result schema;
+ 27. the native host runtime: its build time (phase 2), then solve_lasso(..., backend="native") against
+     the device one-shot on the bench lasso and at 128x256: both SUCCESS,
+     optval within 1e-3, each route's one-shot wall time.
 Phases 14 to 16 run with the launch counts reset, and must launch K1 and
 K3 (the densified routes); so do phases 17 to 21, which must launch K3,
-and phases 22 and 23, which must launch K1 and K3.  Then the kernels'
-summary line, the card's name and power limit, and last
+and phases 22 and 23, and 24 to 27, which must launch K1 and K3; 24 runs
+after 25 to 27, since a profiler session slows the eager launches that
+follow it in the same process.  Then the
+kernels' summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
 Any failure raises and exits non-zero before the last line.  Exits 1 when
@@ -229,12 +251,35 @@ PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 
 
 def phase_build():
+    """nvcc on the four kernels (started together) and, beside them in a
+    thread, the host compiler on the native runtime; returns the native
+    build's {"library", "seconds"} (phase 27 reports it)."""
+    import threading
+
+    from pogs_tpu_torch import native
     from pogs_tpu_torch.ops import _build
 
+    native_build = {}
+
+    def build_native():
+        t = time.perf_counter()
+        try:
+            native_build["library"] = native.build()
+        except Exception as exc:  # re-raised below, after the kernels' build
+            native_build["error"] = exc
+        native_build["seconds"] = time.perf_counter() - t
+
     cached = {name: _build.library_path(name).exists() for name in KERNELS}
+    thread = threading.Thread(target=build_native)
+    thread.start()
     t0 = time.perf_counter()
-    _build.load_all(KERNELS)
+    try:
+        _build.load_all(KERNELS)
+    finally:
+        thread.join()
     secs = time.perf_counter() - t0
+    if "error" in native_build:
+        raise native_build["error"]
     libs = {}
     for name in KERNELS:
         log = _build.BUILD_LOGS.get(name, "")
@@ -244,7 +289,10 @@ def phase_build():
                       else [ln.strip() for ln in log.splitlines()
                             if "registers" in ln or "spill" in ln]),
         }
-    emit({"phase": "build", "seconds": secs, "libraries": libs})
+    emit({"phase": "build", "seconds": secs, "libraries": libs,
+          "native": {"library": os.path.relpath(str(native_build["library"]), ROOT),
+                     "seconds": native_build["seconds"]}})
+    return native_build
 
 
 def _wrappers():
@@ -2709,6 +2757,300 @@ def phase_diff_cone(torch, P):
     return recs
 
 
+# ---------------------------------------------------------------------------
+# Slice 7: profiling, checkpoint / resume, the SCS-data plugin path and the
+# native host runtime.
+# ---------------------------------------------------------------------------
+
+TRACE_DIR = os.path.join(ROOT, "chiprun_out", "traces")
+
+
+def traced_window(torch, name, fn):
+    """fn() inside a record_function window that ends in a synchronize,
+    under the port's trace(); returns (fn's result, busy_time of the window,
+    the trace's path)."""
+    from pogs_tpu_torch.utils.profiling import busy_time, trace
+
+    with trace(TRACE_DIR) as prof:
+        with torch.profiler.record_function(name):
+            out = fn()
+            torch.cuda.synchronize()
+    return out, busy_time(prof.trace_path, name), prof.trace_path
+
+
+def phase_profiling(torch, P):
+    """The port's profiler on the card: trace() around a warm one-shot
+    solve_lasso at the bench size (500x300 f32) and around the bench
+    diff_lasso's forward and backward (phase 22's problem, f64), each
+    window's length, the union of its CUDA kernels' time and so the card's
+    idle share; the one-shot trace must hold a K1 kernel event.  The init
+    split, before any profiler session: equilibrate, norm2_est and the
+    projector's init at 500x300 f32 one by one and the three in sequence,
+    with device_time (CUDA events), then PhaseTimer's summary of five
+    one-shot solves (setup: the FunctionVectors and the solver with A on the
+    card; init; solve: scaling, K1 and unscaling up to the status read;
+    result: the copies to the host).  After the traces, each part in a
+    traced window and the split once more."""
+    from pogs_tpu_torch import PhaseTimer, device_time
+    from pogs_tpu_torch.api.diff import diff_lasso
+    from pogs_tpu_torch.linalg.equil import equilibrate
+    from pogs_tpu_torch.linalg.matrix import DenseMatrix
+    from pogs_tpu_torch.linalg.norm import norm2_est
+    from pogs_tpu_torch.projector.direct import DirectProjector
+    from pogs_tpu_torch.utils.precision import highest_precision
+
+    def k1():
+        return read_counts()["fused_admm_loop"]
+
+    A, b, lam = make_lasso(500, 300)
+    dev, f64 = torch.device("cuda"), torch.float64
+    A_op = DenseMatrix(torch.as_tensor(A, device=dev))
+    proj = DirectProjector("inverse")
+
+    def whole_init(op):
+        eq = equilibrate(op)
+        return norm2_est(eq.A), proj.init(eq.A, s=1.0)
+
+    def init_split():
+        """device_time of the three parts of GraphFormSolver.init one by
+        one and of the three in sequence, as init runs them."""
+        with highest_precision():
+            eq = equilibrate(A_op)
+            parts = {"equilibrate": (equilibrate, A_op), "norm2_est": (norm2_est, eq.A),
+                     "projector_init": (lambda op: proj.init(op, s=1.0), eq.A),
+                     "init_whole": (whole_init, A_op)}
+            ms = {name: device_time(fn, arg, reps=20, warmup=3) * 1e3
+                  for name, (fn, arg) in parts.items()}
+        ms["parts_sum"] = ms["equilibrate"] + ms["norm2_est"] + ms["projector_init"]
+        ms["parts_sum_over_whole"] = ms["parts_sum"] / ms["init_whole"]
+        return parts, ms
+
+    P.solve_lasso(A, b, lam, **BENCH_TOL)  # warm
+    # The init split and PhaseTimer first, before any profiler session in
+    # this process, so that nothing the profiler leaves behind is timed.
+    parts, clean = init_split()
+    rec = {"phase": "profiling", "init_split": {"before_profiler": clean}}
+
+    # PhaseTimer over five one-shot solves, step by step.
+    ok = True
+    timer = PhaseTimer()
+    st = P.SolverSettings(abs_tol=BENCH_TOL["abs_tol"], rel_tol=BENCH_TOL["rel_tol"])
+    for _ in range(5):
+        with timer.phase("setup"):
+            f = P.FunctionVector(P.Function.SQUARE, 500, b=b, dtype=np.float32)
+            gv = P.FunctionVector(P.Function.ABS, 300, c=lam, dtype=np.float32)
+            solver = P.GraphFormSolver(A, settings=st)
+            torch.cuda.synchronize()
+        with timer.phase("init"):
+            solver.init()
+        with timer.phase("solve"):
+            res = solver.solve(f, gv)
+        with timer.phase("result"):
+            res.as_dict()
+        ok = ok and res.status == P.Status.SUCCESS
+
+    before = k1()
+    out, lasso, path = traced_window(torch, "lasso_one_shot",
+                                     lambda: P.solve_lasso(A, b, lam, **BENCH_TOL))
+    k1_names = [k for k in lasso["kernel_ms_by_name"] if "fused_admm_kernel" in k]
+    rec.update({"trace_file": os.path.relpath(path, ROOT),
+                "lasso_one_shot": {"shape": [500, 300], "dtype": "float32",
+                                   "status": out["status"], "iterations": out["iterations"],
+                                   "k1_launches": k1() - before, "k1_events": k1_names,
+                                   "k1_ms": sum(lasso["kernel_ms_by_name"][k] for k in k1_names),
+                                   **{k: v for k, v in lasso.items()
+                                      if k != "kernel_ms_by_name"}}})
+    ok = (ok and os.path.exists(path) and out["status"] == 0 and k1() - before == 1
+          and len(k1_names) == 1)
+
+    # The bench diff_lasso (f64, the layer's defaults): forward and backward.
+    At = torch.as_tensor(A, dtype=f64, device=dev)
+    bt = torch.as_tensor(b, dtype=f64, device=dev)
+    leaves = [torch.tensor(lam, dtype=f64, device=dev).requires_grad_()]
+
+    def forward():
+        return diff_lasso(At, bt, leaves[0])
+
+    x, _ = forward()  # warm: the shape's first backward is cold
+    torch.autograd.grad(0.5 * torch.sum(x * x), leaves)
+    (x, aux), fwd, _ = traced_window(torch, "diff_lasso_forward", forward)
+    (g,), bwd, bwd_path = traced_window(
+        torch, "diff_lasso_backward",
+        lambda: torch.autograd.grad(0.5 * torch.sum(x * x), leaves))
+    rec["diff_lasso"] = {"shape": [500, 300], "dtype": "float64",
+                         "iterations": int(aux["iterations"]), "d_lambda": float(g),
+                         "backward_trace_file": os.path.relpath(bwd_path, ROOT),
+                         "forward": {k: v for k, v in fwd.items() if k != "kernel_ms_by_name"},
+                         "backward": {k: v for k, v in bwd.items() if k != "kernel_ms_by_name"},
+                         "backward_top_kernels": dict(sorted(
+                             bwd["kernel_ms_by_name"].items(), key=lambda kv: -kv[1])[:5])}
+    ok = ok and int(aux["status"]) == 0 and np.isfinite(float(g))
+
+    # Each part of init in a traced window (its launches and kernel time),
+    # then the split again, now that the profiler has run in this process.
+    traced = {}
+    with highest_precision():
+        for name, (fn, arg) in parts.items():
+            _, busy, _ = traced_window(torch, name, lambda: fn(arg))
+            traced[name] = {"traced_ms": busy["window_ms"], "kernel_ms": busy["kernel_ms"],
+                            "kernels": busy["kernels"], "idle_share": busy["idle_share"]}
+    rec["init_split"]["traced"] = traced
+    rec["init_split"]["after_profiler"] = init_split()[1]
+    rec["phase_timer_summary"] = timer.summary().splitlines()
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("profiling phase")
+    return rec
+
+
+def phase_checkpoint(torch, P):
+    """Checkpoint / resume on the card: the bench lasso (500x300 f32, bench
+    tolerances) solved with K1, save_state, load_state into a fresh solver,
+    solved again with K1: SUCCESS within max(3, first // 5) iterations (the
+    contract of tests/test_utils.py), optval within 1e-5 relative, the state
+    on the card in float32; a checkpoint of another matrix refused under
+    strict=True."""
+    import tempfile
+
+    A, b, lam = make_lasso(500, 300)
+    st = P.SolverSettings(abs_tol=BENCH_TOL["abs_tol"], rel_tol=BENCH_TOL["rel_tol"])
+    f = P.FunctionVector(P.Function.SQUARE, 500, b=b, dtype=np.float32)
+    g = P.FunctionVector(P.Function.ABS, 300, c=lam, dtype=np.float32)
+    before = read_counts()["fused_admm_loop"]
+    s1 = P.GraphFormSolver(A, settings=st)
+    r1 = s1.solve(f, g)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bench_lasso.npz")
+        s1.save_state(path)
+        s2 = P.GraphFormSolver(A, settings=st).load_state(path)
+        on_card = s2._z.device.type == "cuda" and s2._z.dtype == torch.float32
+        r2 = s2.solve(f, g)
+        other = make_lasso(500, 300, seed=43)[0]
+        try:
+            P.GraphFormSolver(other, settings=st).load_state(path)
+            refused = False
+        except ValueError as exc:
+            refused = "different matrix" in str(exc)
+    launches = read_counts()["fused_admm_loop"] - before
+    it1, it2 = int(r1.final_iter), int(r2.final_iter)
+    rel = abs(float(r2.optval) - float(r1.optval)) / abs(float(r1.optval))
+    rec = {"phase": "checkpoint", "shape": [500, 300], "dtype": "float32",
+           "first": {"status": r1.status.name, "iterations": it1, "optval": float(r1.optval)},
+           "resumed": {"status": r2.status.name, "iterations": it2, "optval": float(r2.optval)},
+           "iteration_limit": max(3, it1 // 5), "optval_rel_err": rel,
+           "state_on_card_f32": on_card, "other_matrix_refused": refused,
+           "k1_launches": launches}
+    rec["ok"] = bool(r1.status == r2.status == P.Status.SUCCESS and it2 <= max(3, it1 // 5)
+                     and rel <= 1e-5 and on_card and refused and launches == 2)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("checkpoint / resume")
+    return rec
+
+
+def scs_schema_ok(res, m, n):
+    """The SCS 3.x result-dict schema that cvxpy's SCS.invert() reads
+    (tests/test_cvxpy_plugin_contract.py:40-49)."""
+    info = res["info"]
+    return (set(res) == {"x", "y", "s", "info"} and res["x"].shape == (n,)
+            and res["y"].shape == (m,) and res["s"].shape == (m,)
+            and all(k in info for k in ("status", "status_val", "iter", "pobj", "dobj",
+                                        "solve_time", "setup_time"))
+            and info["status_val"] in (1, 2, -1, -2, -4))
+
+
+def phase_scs_data(torch, P):
+    """The cvxpy plugin's solve path on the card: solve_via_scs_data on
+    socp_ball 804x200 (benchmarks/problems.py) in SCS form, f64, one K3
+    launch, held to the port's solve_cone_problem on the same data (the same
+    status and iterations, x within 1e-12) and to the SCS result schema."""
+    from pogs_tpu_torch.api.cvxpy_interface import solve_via_scs_data
+
+    problems, _ = cone_problems()
+    soc = problems.socp_ball()
+    m, n = soc["A"].shape
+    data = {"c": soc["c"], "A": soc["A"], "b": soc["b"], "dims": soc["dims"]}
+    opts = dict(CONE_TOL, max_iter=CONE_MAX_ITER)
+    before = read_counts()["fused_hsde_solve"]
+    t0 = time.perf_counter()
+    res = solve_via_scs_data(data, opts)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = read_counts()["fused_hsde_solve"] - before
+    direct = P.solve_cone_problem(soc["c"], soc["A"], soc["b"], soc["dims"], **opts)
+    err = float(np.max(np.abs(res["x"] - direct["x"])))
+    info = res["info"]
+    rec = {"phase": "scs_data", "problem": "socp_ball", "shape": [m, n], "dtype": "float64",
+           "status": info["status"], "status_val": info["status_val"], "iter": info["iter"],
+           "pobj": info["pobj"], "direct_status": direct["status"],
+           "direct_iterations": direct["iterations"], "x_max_abs_err": err,
+           "schema_ok": scs_schema_ok(res, m, n), "k3_launches": launches,
+           "wall_ms": wall_ms}
+    rec["ok"] = bool(info["status_val"] == 1 and direct["status"] == 0
+                     and info["iter"] == direct["iterations"] and err <= 1e-12
+                     and rec["schema_ok"] and launches == 1)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError("solve_via_scs_data")
+    return rec
+
+
+def phase_native(torch, P, native_build):
+    """The native host runtime against the device path: the library's build
+    time (the host C++ compiler, into build/pogs_tpu_torch/, in phase 2
+    beside the kernels' nvcc), then
+    solve_graph_form(..., backend="native") against the device one-shot
+    (K1) on the bench lasso 500x300 and at 128x256 (32768 elements, the
+    JAX package's native routing size): both SUCCESS with optval within
+    1e-3 relative; each route's one-shot wall time (host clock, the result
+    on the host) over 5 calls in turns after a warm call."""
+    from pogs_tpu_torch import native
+
+    native.load()
+    rec = {"phase": "native", "build_seconds": native_build["seconds"],
+           "library": os.path.relpath(str(native_build["library"]), ROOT),
+           "flags": native.flags(),
+           "version": native.version(), "cases": []}
+    ok = True
+    for m, n in ((500, 300), (128, 256)):
+        A, b, lam = make_lasso(m, n)
+        before = read_counts()["fused_admm_loop"]
+        runs = {"device": lambda: P.solve_lasso(A, b, lam, **BENCH_TOL),
+                "native": lambda: P.solve_lasso(A, b, lam, backend="native", **BENCH_TOL)}
+        out = {route: fn() for route, fn in runs.items()}  # warm
+        times = {route: [] for route in runs}
+        for _ in range(5):
+            for route, fn in runs.items():
+                t0 = time.perf_counter()
+                fn()
+                times[route].append((time.perf_counter() - t0) * 1e3)
+        rel = abs(out["native"]["optval"] - out["device"]["optval"]) / abs(out["device"]["optval"])
+        case = {"shape": [m, n], "elements": m * n,
+                "device": {"status": out["device"]["status"],
+                           "iterations": out["device"]["iterations"],
+                           "optval": out["device"]["optval"],
+                           "kkt": lasso_kkt(A, b, lam, out["device"]["x"]),
+                           "ms": times["device"], "ms_median": float(np.median(times["device"]))},
+                "native": {"status": out["native"]["status"],
+                           "algorithm": out["native"].get("algorithm"),
+                           "iterations": out["native"]["iterations"],
+                           "optval": out["native"]["optval"],
+                           "kkt": lasso_kkt(A, b, lam, out["native"]["x"]),
+                           "ms": times["native"], "ms_median": float(np.median(times["native"]))},
+                "optval_rel_diff": rel, "k1_launches": read_counts()["fused_admm_loop"] - before}
+        case["native_speedup"] = case["device"]["ms_median"] / case["native"]["ms_median"]
+        case["ok"] = bool(out["device"]["status"] == out["native"]["status"] == 0
+                          and out["native"]["backend"] == "native" and rel <= 1e-3
+                          and case["k1_launches"] == 6)
+        ok = ok and case["ok"]
+        rec["cases"].append(case)
+    rec["ok"] = bool(ok)
+    emit(rec)
+    if not ok:
+        raise AssertionError("native runtime against the device path")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -2721,7 +3063,7 @@ def main() -> int:
     if "jax" in sys.modules:
         raise AssertionError("the port imported jax")
     smi = phase_device(torch)
-    phase_build()
+    native_build = phase_build()
     summary = phase_kernel_vs_plain(torch, P)
     launches = phase_main_path(torch, P)
     phase_real_size(torch, P)
@@ -2761,6 +3103,19 @@ def main() -> int:
     emit({"phase": "diff_path_launches", **diff_launches})
     if not diff_launches["fused_admm_loop"] or not diff_launches["fused_hsde_solve"]:
         raise AssertionError(f"the differentiable layers launched {diff_launches}")
+    # Slice 7's path: the checkpoint resume, the native comparison and
+    # profiling launch K1, the SCS-data solve K3.  Profiling runs last: a
+    # profiler session slows the eager launches that follow it in the same
+    # process (PERF.md), and phase 27 times one-shots.
+    reset_counts()
+    phase_checkpoint(torch, P)
+    phase_scs_data(torch, P)
+    phase_native(torch, P, native_build)
+    phase_profiling(torch, P)
+    slice7_launches = read_counts()
+    emit({"phase": "slice7_path_launches", **slice7_launches})
+    if not slice7_launches["fused_admm_loop"] or not slice7_launches["fused_hsde_solve"]:
+        raise AssertionError(f"slice 7's path launched {slice7_launches}")
     if "jax" in sys.modules or "pogs_tpu" in sys.modules:
         raise AssertionError("the port imported jax or pogs_tpu")
     # No single PyTorch call computes an ADMM or HSDE solve: library_ms null.
@@ -2771,7 +3126,8 @@ def main() -> int:
         "name": "fused_admm_loop", "route": "cuda",
         "source": "pogs_tpu_torch/csrc/fused_admm.cu",
         "replaces": "pogs_tpu/ops/fused_admm.py:440",
-        "launches": launches + diff_launches["fused_admm_loop"],
+        "launches": (launches + diff_launches["fused_admm_loop"]
+                     + slice7_launches["fused_admm_loop"]),
         "max_abs_err": max(summary["max_abs_err"].values()),
         "ms": summary["ms"], "plain_ms": summary["plain_ms"],
         "bound_ms": summary["bound_ms"], "bound_by": summary["bound_by"],
@@ -2799,7 +3155,8 @@ def main() -> int:
         "source": "pogs_tpu_torch/csrc/fused_hsde.cu",
         "replaces": "pogs_tpu/ops/fused_hsde.py:555",
         "launches": (launches_h + qp_launches["fused_hsde_solve"]
-                     + diff_launches["fused_hsde_solve"]),
+                     + diff_launches["fused_hsde_solve"]
+                     + slice7_launches["fused_hsde_solve"]),
         "max_abs_err": summary_h["max_abs_err"],
         "ms": summary_h["ms"], "plain_ms": summary_h["plain_ms"],
         "bound_ms": summary_h["bound_ms"], "bound_by": summary_h["bound_by"],

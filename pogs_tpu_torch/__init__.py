@@ -20,7 +20,10 @@ implicit gradients).  On a CUDA device a dense
 solve runs as one hand-written CUDA kernel (``ops/fused_admm.py`` for the
 graph form, ``ops/fused_hsde.py`` for the cone form) and a λ-sweep as
 another (``ops/fused_admm_batch.py``); elsewhere they run as eager torch
-loops.  This package imports torch and numpy only.
+loops.  ``backend="native"`` solves a graph-form problem on the host
+through the native C++ runtime (``pogs_tpu_torch.native``), built from the
+checkout's sources at first use.  This package imports torch and numpy
+only.
 """
 
 from pogs_tpu_torch.types import (
@@ -32,6 +35,9 @@ from pogs_tpu_torch.types import (
     Status,
     SolverSettings,
     SolverResult,
+    # Reference-spelling function aliases (kAbs = Function.ABS, ...).
+    kAbs, kExp, kHuber, kIdentity, kIndBox01, kIndEq0, kIndGe0, kIndLe0,
+    kLogistic, kMaxNeg0, kMaxPos0, kNegEntr, kNegLog, kRecipr, kSquare, kZero,
 )
 from pogs_tpu_torch.cones.sets import ConeSet
 from pogs_tpu_torch.prox import prox_eval, func_eval, proj_subgrad_eval
@@ -62,7 +68,15 @@ from pogs_tpu_torch.api.diff import (
     diff_qp,
 )
 from pogs_tpu_torch.api.diff_cone import make_diff_cone_solver, diff_cone_solve
+from pogs_tpu_torch.api.cvxpy_interface import (
+    pogs_solve,
+    detect_graph_form,
+    register_solver as register_cvxpy_solver,
+    HAS_CVXPY,
+)
 from pogs_tpu_torch.utils.interop import init_state_from_numpy
+from pogs_tpu_torch.utils.profiling import trace, PhaseTimer, device_time
+from pogs_tpu_torch.utils.checkpoint import save_state, load_state
 
 __version__ = "0.1.0"
 
@@ -109,5 +123,17 @@ __all__ = [
     "diff_qp",
     "make_diff_cone_solver",
     "diff_cone_solve",
+    "pogs_solve",
+    "detect_graph_form",
+    "register_cvxpy_solver",
+    "HAS_CVXPY",
     "init_state_from_numpy",
+    "trace",
+    "PhaseTimer",
+    "device_time",
+    "save_state",
+    "load_state",
+    "kAbs", "kExp", "kHuber", "kIdentity", "kIndBox01", "kIndEq0",
+    "kIndGe0", "kIndLe0", "kLogistic", "kMaxNeg0", "kMaxPos0",
+    "kNegEntr", "kNegLog", "kRecipr", "kSquare", "kZero",
 ]

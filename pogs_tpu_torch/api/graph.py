@@ -7,10 +7,13 @@ and the same defaults (abs_tol 1e-4, rel_tol 1e-4, max_iter 2500, rho 1.0,
 adaptive_rho and gap_stop on).  Every builder takes ``device=``: by default
 the device of a tensor A, else CUDA; A may be sparse (a scipy matrix or a
 sparse tensor), and ``sparse_policy=`` goes on to the solver.
+``backend="native"`` solves on the host instead, through the native
+runtime (``pogs_tpu_torch.native``).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import numpy as np
@@ -19,6 +22,9 @@ import torch
 from pogs_tpu_torch.types import Function, FunctionVector, SolverSettings
 from pogs_tpu_torch.linalg.matrix import is_sparse_input
 from pogs_tpu_torch.solver.graph import GraphFormSolver
+
+# "auto" and "torch" solve on the solver's device; "native" on the host.
+BACKENDS = ("auto", "torch", "native")
 
 
 def solve_graph_form(
@@ -36,11 +42,19 @@ def solve_graph_form(
     solver: Optional[GraphFormSolver] = None,
     dtype=None,
     device=None,
+    backend: str = "auto",
     **solver_kw,
 ):
     """Solve min f(y) + g(x) s.t. y = Ax. Returns the reference result dict.
 
-    ``f``/``g`` accept FunctionVector objects or lists of FunctionObj."""
+    ``f``/``g`` accept FunctionVector objects or lists of FunctionObj.
+
+    ``backend``: "auto" (default) and "torch" solve on the device (by
+    default CUDA; see GraphFormSolver), "native" solves on the host through
+    the native runtime's :func:`~pogs_tpu_torch.native.solve_graph_native`
+    and marks the result ``out["backend"] = "native"``.  The JAX package's
+    "auto" sends small one-shot problems to the native runtime; here "auto"
+    stays on the device."""
     if isinstance(f, (list, tuple)):
         f = FunctionVector.from_objs(f, dtype=dtype)
     if isinstance(g, (list, tuple)):
@@ -50,6 +64,17 @@ def solve_graph_form(
         verbose=verbose, adaptive_rho=adaptive_rho, gap_stop=gap_stop,
         use_fused=use_fused,
     )
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "native":
+        from pogs_tpu_torch.native import solve_graph_native
+
+        t0 = time.perf_counter()
+        out = solve_graph_native(A, f, g, settings=st)
+        out["status"] = int(out["status"])
+        out["solve_time"] = time.perf_counter() - t0
+        out["backend"] = "native"
+        return out
     if solver is None:
         solver = GraphFormSolver(A, dtype=dtype, settings=st, device=device,
                                  **solver_kw)

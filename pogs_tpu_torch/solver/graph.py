@@ -200,6 +200,17 @@ class GraphFormSolver:
         self._zt = None
         return self
 
+    def save_state(self, path):
+        """Checkpoint the warm-start state (z, zt, rho) to ``path`` (.npz)."""
+        from pogs_tpu_torch.utils.checkpoint import save_state
+        save_state(self, path)
+        return self
+
+    def load_state(self, path, strict: bool = True):
+        """Restore a checkpoint created by :meth:`save_state`."""
+        from pogs_tpu_torch.utils.checkpoint import load_state
+        return load_state(self, path, strict=strict)
+
     # -- solving -------------------------------------------------------------
 
     def solve(

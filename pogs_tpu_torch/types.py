@@ -40,6 +40,25 @@ class Function(enum.IntEnum):
     ZERO = 15      # f(x) = 0
 
 
+# Aliases in the reference's k-prefixed spelling.
+kAbs = Function.ABS
+kExp = Function.EXP
+kHuber = Function.HUBER
+kIdentity = Function.IDENTITY
+kIndBox01 = Function.INDBOX01
+kIndEq0 = Function.INDEQ0
+kIndGe0 = Function.INDGE0
+kIndLe0 = Function.INDLE0
+kLogistic = Function.LOGISTIC
+kMaxNeg0 = Function.MAXNEG0
+kMaxPos0 = Function.MAXPOS0
+kNegEntr = Function.NEGENTR
+kNegLog = Function.NEGLOG
+kRecipr = Function.RECIPR
+kSquare = Function.SQUARE
+kZero = Function.ZERO
+
+
 class Cone(enum.IntEnum):
     """Cone types. Values match the reference C enum."""
 

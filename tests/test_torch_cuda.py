@@ -761,3 +761,51 @@ def test_diff_qp_forward_through_k1_matches_eager(cuda):
     eager = _layer_grads(layer, args, w, False)
     assert pf.fused_admm_loop.launches == before + 1
     _assert_routes_agree(kernel, eager)
+
+
+def test_checkpoint_resume_through_k1(cuda, tmp_path):
+    """chip_smoke phase 25 on the card: the bench lasso (500x300 f32) solved
+    with K1, checkpointed, resumed in a fresh solver (the state restored on
+    the card in float32) and solved again with K1: SUCCESS within
+    max(3, first // 5) iterations, optval within 1e-5 relative; a
+    checkpoint of another matrix is refused."""
+    smoke = _chip_smoke()
+    A, b, lam = smoke.make_lasso(500, 300)
+    st = P.SolverSettings(abs_tol=1e-4, rel_tol=1e-3)
+    f = P.FunctionVector(P.Function.SQUARE, 500, b=b, dtype=np.float32)
+    g = P.FunctionVector(P.Function.ABS, 300, c=lam, dtype=np.float32)
+    before = pf.fused_admm_loop.launches
+    s1 = P.GraphFormSolver(A, settings=st)
+    r1 = s1.solve(f, g)
+    path = tmp_path / "bench.npz"
+    s1.save_state(path)
+    s2 = P.GraphFormSolver(A, settings=st).load_state(path)
+    assert s2._z.device.type == "cuda" and s2._z.dtype == torch.float32
+    r2 = s2.solve(f, g)
+    assert pf.fused_admm_loop.launches == before + 2
+    assert r1.status == r2.status == P.Status.SUCCESS
+    assert int(r2.final_iter) <= max(3, int(r1.final_iter) // 5)
+    assert float(r2.optval) == pytest.approx(float(r1.optval), rel=1e-5)
+    with pytest.raises(ValueError, match="different matrix"):
+        P.GraphFormSolver(smoke.make_lasso(500, 300, seed=43)[0]).load_state(path)
+
+
+def test_scs_data_solve_through_k3(cuda):
+    """chip_smoke phase 26 on the card: solve_via_scs_data on socp_ball
+    (n = 50) in f64, one K3 launch, equal to solve_cone_problem on the same
+    data (status, iterations, x within 1e-12) and in the SCS result schema."""
+    from pogs_tpu_torch.api.cvxpy_interface import solve_via_scs_data
+
+    smoke = _chip_smoke()
+    problems, _ = smoke.cone_problems()
+    soc = problems.socp_ball(n=50, n_balls=4)
+    m, n = soc["A"].shape
+    opts = dict(abs_tol=1e-6, rel_tol=1e-6, max_iter=20000)
+    before = ph.fused_hsde_solve.launches
+    res = solve_via_scs_data({k: soc[k] for k in ("c", "A", "b", "dims")}, opts)
+    assert ph.fused_hsde_solve.launches == before + 1
+    direct = P.solve_cone_problem(soc["c"], soc["A"], soc["b"], soc["dims"], **opts)
+    assert smoke.scs_schema_ok(res, m, n)
+    assert res["info"]["status_val"] == 1 and direct["status"] == 0
+    assert res["info"]["iter"] == direct["iterations"]
+    np.testing.assert_allclose(res["x"], direct["x"], rtol=0, atol=1e-12)
