@@ -144,12 +144,33 @@ Phases, each printing one JSON line of its own:
      (status, iterations, x within 1e-12) and in the SCS result schema;
  27. the native host runtime: its build time (phase 2), then solve_lasso(..., backend="native") against
      the device one-shot on the bench lasso and at 128x256: both SUCCESS,
-     optval within 1e-3, each route's one-shot wall time.
+     optval within 1e-3, each route's one-shot wall time;
+ 28. multi-device solves on torch.distributed: two spawned ranks share
+     cuda:0 under gloo (a FileStore, a group timeout; the kernels built by
+     phase 2 before they spawn) and run (a) the bench lasso row-sharded in
+     f32 and f64 and (b) a wide 300x500 lasso on the column plan auto_shard
+     picks, each against the single-device eager loop (status, iterations,
+     x within 5e-4 / 1e-8), (c) 5000x2500 row-sharded, 100 iterations, ms
+     per iteration beside the single-device eager loop, (d) shard_sparse
+     with pad_cone_rows, the cg strategy in f64, against the single-device
+     kept-sparse solve: the SOCP and the LP of tests/test_sharding.py
+     solved to tolerance (status, iterations, x within 1e-8, optval; the
+     SOCP also against its closed form), and at sparse_bench's LP 1400x300
+     the sharded operator's products against the single-device one's and
+     3 DR iterations timed, (e) a (batch = 2, rows = 1) mesh: the bench
+     λ-sweep, K = 128, one K2 launch per rank, and batched_cone_solve on
+     socp_ball 804x200 f64 with K = 8, four K3 launches per rank, every lane
+     equal to the single-device run's; then (f) the row plan on an NCCL
+     group of one rank.  It prints the all-reduces per ADMM and DR
+     iteration (count and bytes), ms per iteration of the sharded and the
+     single-device solves, µs per all_reduce by size, and the spawn time.  Two ranks on one card
+     measure the software path (gloo stages through the host), not scaling.
 Phases 14 to 16 run with the launch counts reset, and must launch K1 and
 K3 (the densified routes); so do phases 17 to 21, which must launch K3,
 and phases 22 and 23, and 24 to 27, which must launch K1 and K3; 24 runs
 after 25 to 27, since a profiler session slows the eager launches that
-follow it in the same process.  Then the
+follow it in the same process.  Phase 28 counts its launches in its ranks
+(K2 and K3).  ``--mesh-only`` runs phases 1, 2 and 28.  Then the
 kernels' summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
@@ -3051,6 +3072,478 @@ def phase_native(torch, P, native_build):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# Slice 8: multi-device solves on torch.distributed.  Phase 28 runs two
+# ranks on one GPU, cuda:0, under gloo (which stages its buffers through the
+# host): these times measure the software path, not scaling.
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_DEVICE = "cuda:0"  # every rank's: the gloo ranks share one card
+MESH_GROUP_TIMEOUT_S = 300
+MESH_JOIN_TIMEOUT_S = 480
+# DR iterations of sparse_bench's LP timed in phase 28 (d): each makes over
+# a thousand collectives, so a solve to tolerance does not fit the phase.
+SPARSE_TIMED_ITERS = 3
+# Elements per all_reduce timed in each rank of phase 28, and the calls
+# timed per size (after a warm-up of 10).
+MESH_AR_SIZES = (1, 8, 300, 2500, 90_000)
+MESH_AR_REPS = 100
+
+
+def _all_reduce_us(torch, M, mesh):
+    """Microseconds per all_reduce of the rows group, f64, the device
+    synchronized after each call: the median of ``MESH_AR_REPS`` for each
+    size of ``MESH_AR_SIZES``."""
+    group = mesh.group("rows")
+    out = {}
+    for size in MESH_AR_SIZES:
+        t = torch.zeros(size, dtype=torch.float64, device=mesh.device)
+        for _ in range(10):
+            M.all_reduce(t, group)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(MESH_AR_REPS):
+            t0 = time.perf_counter()
+            M.all_reduce(t, group)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e6)
+        out[size] = float(np.median(times))
+    return out
+
+
+def _rank_barrier(torch, M, mesh):
+    """Every rank of the group waits here (an all_reduce: the only
+    collectives used are all_reduce and broadcast)."""
+    t = torch.zeros(1, device=mesh.device)
+    M.all_reduce(t, None, "small")
+    torch.cuda.synchronize()
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _solve_pair(torch, P, M, mesh, A, f, g, st, shard, rank, label):
+    """The single-device eager solve (rank 0 alone, the other ranks waiting)
+    and the sharded one (every rank) from the same numpy inputs: status,
+    iterations, x, and each one's ms per iteration, timed on a second cold
+    solve of the same solver (the first pays the process's warm-up; the
+    second starts again from zeros and the settings' ρ)."""
+    def cold(solver):
+        solver.reset_warm_start()
+        return solver.solve(f, g, rho=st.rho)
+
+    ref = None
+    if rank == 0:
+        solver = P.GraphFormSolver(A, settings=st, device=mesh.device).init()
+        cold(solver)
+        ref, ref_ms = _timed(torch, lambda: cold(solver))
+    _rank_barrier(torch, M, mesh)
+    op = shard(A, mesh)
+    sh_solver = P.GraphFormSolver(op, settings=st).init()
+    cold(sh_solver)
+    _rank_barrier(torch, M, mesh)
+    M.reset_stats()
+    sh, sh_ms = _timed(torch, lambda: cold(sh_solver))
+    stats = dict(M.stats)
+    it = int(sh.final_iter)
+    rec = {"case": label, "shape": list(A.shape), "dtype": str(A.dtype), "plan": op.plan,
+           "status": int(sh.status), "iterations": it, "ms_per_iter": sh_ms / (it + 1),
+           "all_reduces_per_iter": {k: v / (it + 1) for k, v in stats.items()}}
+    if ref is not None:
+        rec.update(ref_status=int(ref.status), ref_iterations=int(ref.final_iter),
+                   ref_ms_per_iter=ref_ms / (int(ref.final_iter) + 1),
+                   x_max_abs_err=float((ref.x - sh.x).abs().max()))
+    return rec
+
+
+def _steady_collectives(torch, P, M, mesh, A, f, g, shard, exact=False):
+    """All-reduces per steady-state ADMM iteration, by kind and bytes: two
+    runs at tolerance 0 (20 and 40 iterations) differenced."""
+    counts = []
+    for iters in (20, 40):
+        st = P.SolverSettings(abs_tol=0.0, rel_tol=0.0, max_iter=iters, use_fused=False,
+                              use_exact_tol=exact)
+        solver = P.GraphFormSolver(shard(A, mesh), settings=st).init()
+        M.reset_stats()
+        solver.solve(f, g)
+        counts.append(dict(M.stats))
+    return {k: (counts[1][k] - counts[0][k]) / 20 for k in counts[0]}
+
+
+def _steady_dr_collectives(torch, P, M, mesh, A, b, c, cones):
+    """All-reduces per DR iteration of a row-sharded SMW cone solve (its
+    checks every 10th iteration included): 21 and 41 iterations
+    differenced."""
+    counts = []
+    for iters in (21, 41):
+        st = P.SolverSettings(abs_tol=0.0, rel_tol=0.0, max_iter=iters, polish=False)
+        solver = P.ConeSolver(M.shard_matrix(A, mesh), Ky=cones, settings=st).init()
+        M.reset_stats()
+        solver.solve(b, c)
+        counts.append(dict(M.stats))
+    return {k: (counts[1][k] - counts[0][k]) / 20 for k in counts[0]}
+
+
+def _mesh_graph(torch, P, M, mesh, rank):
+    """(a) the row plan, (b) the column plan, (c) 5000x2500 row-sharded."""
+    F = P.Function
+    out = []
+    A, b, lam = make_lasso(500, 300)
+    f = P.FunctionVector(F.SQUARE, 500, b=b)
+    g = P.FunctionVector(F.ABS, 300, c=lam)
+    cases = [("row_f32", A, P.SolverSettings(use_fused=False, **BENCH_TOL), 5e-4),
+             ("row_f64", A.astype(np.float64),
+              P.SolverSettings(use_fused=False, abs_tol=1e-6, rel_tol=1e-6), 1e-8)]
+    for label, A_c, st, lim in cases:
+        rec = _solve_pair(torch, P, M, mesh, A_c, f, g, st, M.shard_matrix, rank, label)
+        rec["x_limit"] = lim
+        out.append(rec)
+    A_w, b_w, lam_w = make_lasso(300, 500)
+    if M.auto_shard(A_w, mesh).plan != "cols":
+        raise AssertionError("auto_shard did not pick the column plan for a wide A")
+    rec = _solve_pair(torch, P, M, mesh, A_w, P.FunctionVector(F.SQUARE, 300, b=b_w),
+                      P.FunctionVector(F.ABS, 500, c=lam_w),
+                      P.SolverSettings(use_fused=False, **BENCH_TOL), M.auto_shard, rank,
+                      "col_f32")
+    rec["x_limit"] = 5e-4
+    out.append(rec)
+    A_r, b_r, lam_r = make_lasso(5000, 2500)
+    rec = _solve_pair(torch, P, M, mesh, A_r, P.FunctionVector(F.SQUARE, A_r.shape[0], b=b_r),
+                      P.FunctionVector(F.ABS, A_r.shape[1], c=lam_r),
+                      P.SolverSettings(use_fused=False, max_iter=100, **BENCH_TOL),
+                      M.shard_matrix, rank, "real_size_5000x2500_f32")
+    rec["x_limit"] = 5e-4
+    out.append(rec)
+    budget = {"row": _steady_collectives(torch, P, M, mesh, A, f, g, M.shard_matrix),
+              "col": _steady_collectives(torch, P, M, mesh, A_w,
+                                         P.FunctionVector(F.SQUARE, 300, b=b_w),
+                                         P.FunctionVector(F.ABS, 500, c=lam_w),
+                                         M.shard_matrix_cols),
+              "row_exact": _steady_collectives(torch, P, M, mesh, A, f, g, M.shard_matrix,
+                                               exact=True)}
+    return out, budget
+
+
+def _sparse_op_errors(torch, P, M, mesh, A):
+    """The sharded operator of ``A`` (``shard_sparse``, f64) against the
+    single-device ``SparseMatrix`` on the same seeded vectors: the largest
+    error of mv, rmv, sq_mv and sq_rmv, each relative to max(1, ‖ref‖∞),
+    and of frob2."""
+    from pogs_tpu_torch.linalg.matrix import as_matrix_op
+    from pogs_tpu_torch.parallel.sparse import shard_sparse
+
+    op, m = shard_sparse(A, mesh, dtype=np.float64)
+    ref = as_matrix_op(A, torch.float64, mesh.device)
+    rng = np.random.default_rng(28)
+    x = torch.as_tensor(rng.standard_normal(A.shape[1]), device=mesh.device)
+    y = torch.zeros(op.shape[0], dtype=torch.float64, device=mesh.device)
+    y[:m] = torch.as_tensor(rng.standard_normal(m), device=mesh.device)
+
+    def err(got, want):
+        return float((got - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+    return {"mv": err(op.gather(op.mv(x))[:m], ref.mv(x)),
+            "rmv": err(op.rmv(op.local(y)), ref.rmv(y[:m])),
+            "sq_mv": err(op.gather(op.sq_mv(x))[:m], ref.sq_mv(x)),
+            "sq_rmv": err(op.sq_rmv(op.local(y)), ref.sq_rmv(y[:m])),
+            "frob2": abs(float(op.frob2()) - float(ref.frob2())) / float(ref.frob2())}
+
+
+def _mesh_sparse(torch, P, M, mesh, rank):
+    """(d) shard_sparse with pad_cone_rows, the cg strategy, f64, against the
+    single-device kept-sparse solve (rank 0).  The SOCP and the LP of
+    tests/test_sharding.py at their sizes are solved to tolerance and held
+    (``"hold": "solve"``; the SOCP also to its closed form).  At
+    sparse_bench's LP 1400x300 the sharded operator's products are held to
+    the single-device ``SparseMatrix``'s, and ``SPARSE_TIMED_ITERS`` DR
+    iterations are timed (``"hold": "timed"``): each makes over a thousand
+    collectives of about a millisecond here, and a CG stopped at a loose
+    tolerance follows the order of its sums, so that short trajectory is
+    reported, not held."""
+    import scipy.sparse as sp
+    from pogs_tpu_torch.parallel.sparse import pad_cone_rows, shard_sparse
+
+    Cn = P.Cone
+    rng = np.random.default_rng(7)
+    Araw = sp.random(9, 10, density=0.4, random_state=1, format="csr")
+    A_lp = sp.vstack([Araw, sp.eye(10), -sp.eye(10)]).tocsr()
+    b_lp = A_lp @ rng.normal(size=10) + rng.random(A_lp.shape[0]) + 0.1
+    c_lp = rng.normal(size=10)
+    rng = np.random.default_rng(9)
+    x0, c_soc = rng.standard_normal(15), rng.standard_normal(15)
+    A_soc = sp.vstack([sp.csr_matrix((1, 15)), -sp.eye(15)]).tocsr()
+    b_soc = np.concatenate([[1.5], -x0])
+    big = sparse_lp_problem()
+    cases = [("socp_16x15", A_soc, b_soc, c_soc, [P.ConeConstraint(Cn.SOC, range(16))],
+              P.SolverSettings(abs_tol=1e-4, rel_tol=1e-4), "solve",
+              float(c_soc @ x0 - 1.5 * np.linalg.norm(c_soc))),
+             ("lp_29x10", A_lp, b_lp, c_lp, [P.ConeConstraint(Cn.NON_NEG, range(29))],
+              P.SolverSettings(abs_tol=1e-6, rel_tol=1e-6, max_iter=1500), "solve", None),
+             ("lp_1400x300", big["A"], big["b"], big["c"], P.dims_to_cones(big["dims"]),
+              P.SolverSettings(max_iter=SPARSE_TIMED_ITERS, **CONE_TOL), "timed", None)]
+    out = []
+    for label, A, b, c, cones, st, hold, expect in cases:
+        ref = None
+        if rank == 0:
+            solver = P.ConeSolver(A, Ky=cones, settings=st, dtype=torch.float64,
+                                  device=mesh.device, sparse_policy="keep").init()
+            ref, ref_ms = _timed(torch, lambda: solver.solve(b, c))
+        _rank_barrier(torch, M, mesh)
+        op, _ = shard_sparse(A, mesh, dtype=np.float64)
+        b_pad, cones_pad = pad_cone_rows(b, cones, op.shape[0])
+        solver = P.ConeSolver(op, Ky=cones_pad, settings=st, dtype=torch.float64).init()
+        _rank_barrier(torch, M, mesh)
+        M.reset_stats()
+        sh, sh_ms = _timed(torch, lambda: solver.solve(b_pad, c))
+        it = int(sh.final_iter)
+        rec = {"case": label, "shape": list(A.shape), "nnz": int(A.nnz),
+               "strategy": solver.strategy, "status": int(sh.status), "iterations": it,
+               "hold": hold, "ms_per_dr_iter": sh_ms / (it + 1),
+               "optval": float(sh.optval), "x_finite": bool(torch.isfinite(sh.x).all()),
+               "all_reduces_per_dr_iter": {k: v / (it + 1) for k, v in M.stats.items()}}
+        if expect is not None:
+            rec["closed_form"] = expect
+        if hold == "timed":
+            rec["op_errors"] = _sparse_op_errors(torch, P, M, mesh, A)
+        if ref is not None:
+            rec.update(ref_status=int(ref.status), ref_iterations=int(ref.final_iter),
+                       ref_ms_per_dr_iter=ref_ms / (int(ref.final_iter) + 1),
+                       ref_optval=float(ref.optval),
+                       x_max_abs_err=float((ref.x - sh.x).abs().max()))
+        out.append(rec)
+    return out
+
+
+def _mesh_batches(torch, P, M, rank, world):
+    """(e) a (batch = world, rows = 1) mesh: the bench λ-sweep (one K2 launch
+    per rank) and batched_cone_solve on socp_ball (its K3 launches per rank),
+    the main path of this phase, with the launch counts reset around it; then
+    every lane against the single-device run's (rank 0, uncounted)."""
+    from pogs_tpu_torch.parallel import batched_cone_solve, solve_lasso_path
+
+    mesh = M.make_mesh((world, 1), ("batch", "rows"), device=MESH_DEVICE)
+    A, b, lam = make_lasso(500, 300)
+    K = 128
+    lams = (np.linspace(1.0, 0.5, K) * lam).astype(np.float32)
+    st = P.SolverSettings(**SWEEP_TOL)
+    problems, _ = cone_problems()
+    soc = problems.socp_ball()
+    cones = P.dims_to_cones(soc["dims"])
+    K_c = 8
+    rng = np.random.default_rng(8)
+    bs = soc["b"][None, :] * (1.0 + 0.02 * rng.standard_normal((K_c, 1)))
+    st_c = P.SolverSettings(max_iter=CONE_MAX_ITER, **CONE_TOL)
+
+    _rank_barrier(torch, M, mesh)
+    reset_counts()
+    M.reset_stats()
+    sweep, sweep_ms = _timed(torch, lambda: solve_lasso_path(A, b, lams, settings=st, mesh=mesh))
+    cone, cone_ms = _timed(torch, lambda: batched_cone_solve(soc["A"], bs, soc["c"], cones,
+                                                             settings=st_c, mesh=mesh))
+    launches = read_counts()
+    stats = dict(M.stats)
+    rec = {"mesh": {"batch": world, "rows": 1}, "launches": launches,
+           "launches_by_route": dict(_wrappers()["fused_batched_lasso_sweep"].launches_by_route),
+           "sweep": {"K": K, "ms": sweep_ms, "lanes_per_rank": K // world,
+                     "status_all_success": bool((sweep["status"] == 0).all())},
+           "cone": {"K": K_c, "ms": cone_ms, "lanes_per_rank": K_c // world,
+                    "status_all_success": bool((cone["status"] == 0).all())},
+           "gather_all_reduces": stats}
+    if rank == 0:
+        from pogs_tpu_torch.ops.fused_admm_batch import fused_batched_lasso_sweep
+        from pogs_tpu_torch.ops.fused_hsde import fused_hsde_solve
+
+        saved = (fused_batched_lasso_sweep.launches, fused_hsde_solve.launches)
+        ref = solve_lasso_path(A, b, lams, settings=st, device=MESH_DEVICE)
+        ref_c = batched_cone_solve(soc["A"], bs, soc["c"], cones, settings=st_c,
+                                   device=MESH_DEVICE)
+        torch.cuda.synchronize()
+        fused_batched_lasso_sweep.launches, fused_hsde_solve.launches = saved
+        rec["sweep"].update(
+            x_max_abs_err=float((ref["x"] - sweep["x"]).abs().max()),
+            same_iterations=bool((ref["iterations"] == sweep["iterations"]).all()),
+            same_status=bool((ref["status"] == sweep["status"]).all()),
+            kkt_max=float(lasso_kkt_lanes(A, b, lams, sweep["x"].cpu().numpy()).max()))
+        rec["cone"].update(
+            x_max_abs_err=float((ref_c["x"] - cone["x"]).abs().max()),
+            same_iterations=bool((ref_c["iterations"] == cone["iterations"]).all()),
+            same_status=bool((ref_c["status"] == cone["status"]).all()))
+    _rank_barrier(torch, M, mesh)
+    return rec
+
+
+def _mesh_rank(rank, world, store_path, out_path, backend):
+    """One spawned rank of phase 28: joins the group (a FileStore, a group
+    timeout) and runs the phase's parts; an exception ends the process with
+    a non-zero code and its traceback."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, ROOT)
+    import pogs_tpu_torch as P
+    from pogs_tpu_torch.parallel import mesh as M
+
+    torch.cuda.set_device(torch.device(MESH_DEVICE))
+    t0 = time.perf_counter()
+    M.init_distributed(store=dist.FileStore(store_path, world), world_size=world, rank=rank,
+                       backend=backend,
+                       timeout=datetime.timedelta(seconds=MESH_GROUP_TIMEOUT_S))
+    mesh = M.make_mesh((world,), ("rows",), device=MESH_DEVICE)
+    out = {"rank": rank, "backend": dist.get_backend(), "init_s": time.perf_counter() - t0,
+           "all_reduce_us": _all_reduce_us(torch, M, mesh)}
+
+    def done(part):
+        if rank == 0:
+            print(f"mesh rank 0: {part} done at {time.perf_counter() - t0:.1f} s", flush=True)
+
+    if backend == "nccl":
+        A, b, lam = make_lasso(500, 300)
+        out["graph"] = [dict(_solve_pair(
+            torch, P, M, mesh, A, P.FunctionVector(P.Function.SQUARE, 500, b=b),
+            P.FunctionVector(P.Function.ABS, 300, c=lam),
+            P.SolverSettings(use_fused=False, **BENCH_TOL), M.shard_matrix, rank, "row_f32"),
+            x_limit=5e-4)]
+    else:
+        out["graph"], out["budget"] = _mesh_graph(torch, P, M, mesh, rank)
+        done("(a) to (c)")
+        problems, _ = cone_problems()
+        soc = problems.socp_ball()
+        out["budget"]["dr"] = _steady_dr_collectives(torch, P, M, mesh, soc["A"], soc["b"],
+                                                     soc["c"], P.dims_to_cones(soc["dims"]))
+        out["batches"] = _mesh_batches(torch, P, M, rank, world)
+        done("(e)")
+        out["sparse"] = _mesh_sparse(torch, P, M, mesh, rank)
+        done("(d)")
+    out["jax_loaded"] = "jax" in sys.modules or "pogs_tpu" in sys.modules
+    with open(f"{out_path}.{rank}", "wb") as fh:
+        pickle.dump(out, fh)
+    dist.destroy_process_group()
+
+
+def _spawn_ranks(world, backend):
+    """Spawn ``world`` ranks of :func:`_mesh_rank`; every rank's results,
+    and the time from the spawn to the last rank's group init."""
+    import multiprocessing as mp
+    import pickle
+    import tempfile
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        store, out = os.path.join(tmp, "store"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_mesh_rank, args=(r, world, store, out, backend))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MESH_JOIN_TIMEOUT_S
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        wall = time.perf_counter() - t0
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        codes = [p.exitcode for p in procs]
+        if hung or any(codes):
+            raise AssertionError(f"phase 28 ({backend}): rank exit codes {codes}, "
+                                 f"{len(hung)} killed at the join timeout")
+        results = []
+        for r in range(world):
+            with open(f"{out}.{r}", "rb") as fh:
+                results.append(pickle.load(fh))
+    return results, wall
+
+
+def phase_mesh(torch, P):
+    """Phase 28: two gloo ranks on cuda:0 ((a) to (e)), then an NCCL group of
+    one rank ((f)); returns the K2 and K3 launches the ranks made on the
+    phase's main path (e)."""
+    results, wall = _spawn_ranks(MESH_RANKS, "gloo")
+    nccl, nccl_wall = _spawn_ranks(1, "nccl")
+    r0 = results[0]
+    rec = {"phase": "mesh", "ranks": MESH_RANKS, "backend": r0["backend"],
+           "spawn_to_done_s": wall, "group_init_s": [r["init_s"] for r in results],
+           "all_reduce_us": r0["all_reduce_us"],
+           "graph": r0["graph"], "all_reduces_per_iter": r0["budget"],
+           "sparse": r0["sparse"], "batches": [r["batches"] for r in results],
+           "nccl": {"backend": nccl[0]["backend"], "spawn_to_done_s": nccl_wall,
+                    "all_reduce_us": nccl[0]["all_reduce_us"], "graph": nccl[0]["graph"]}}
+    fails = []
+    if any(r["jax_loaded"] for r in results + nccl):
+        fails.append("a rank imported jax or pogs_tpu")
+    for g in r0["graph"] + nccl[0]["graph"]:
+        if not (g["status"] == g["ref_status"] and g["iterations"] == g["ref_iterations"]
+                and g["x_max_abs_err"] <= g["x_limit"]):
+            fails.append(f"graph {g['case']}")
+    for kind in ("row", "col", "row_exact"):
+        c = r0["budget"][kind]
+        if c["vector"] > 2 or c["small"] > 1:
+            fails.append(f"budget {kind}: {c}")
+    for s in r0["sparse"]:
+        if s["hold"] == "solve":
+            # As tests/test_torch_sharding_sparse.py holds them on the CPU.
+            ok = (s["status"] == s["ref_status"] == 0 and s["iterations"] == s["ref_iterations"]
+                  and s["x_max_abs_err"] <= 1e-8
+                  and abs(s["optval"] - s["ref_optval"]) <= 1e-10 * max(1.0, abs(s["ref_optval"])))
+            if "closed_form" in s:
+                ok = ok and abs(s["optval"] - s["closed_form"]) <= 1e-3 * max(1.0, abs(s["closed_form"]))
+        else:
+            ok = s["x_finite"] and all(e <= 1e-12 for e in s["op_errors"].values())
+        if not ok:
+            fails.append(f"sparse {s['case']}")
+    k2 = k3 = 0
+    for r in results:
+        b = r["batches"]
+        k2 += b["launches"]["fused_batched_lasso_sweep"]
+        k3 += b["launches"]["fused_hsde_solve"]
+        if (b["launches"]["fused_batched_lasso_sweep"] != 1
+                or b["launches"]["fused_hsde_solve"] != 8 // MESH_RANKS
+                or b["launches"]["fused_admm_loop"] != 0
+                or not b["sweep"]["status_all_success"] or not b["cone"]["status_all_success"]):
+            fails.append(f"batches rank {r['rank']}: {b['launches']}")
+    b0 = r0["batches"]
+    if not (b0["sweep"]["same_status"] and b0["sweep"]["same_iterations"]
+            and b0["sweep"]["x_max_abs_err"] == 0.0 and b0["sweep"]["kkt_max"] < 1e-2):
+        fails.append(f"sweep lanes {b0['sweep']}")
+    if not (b0["cone"]["same_status"] and b0["cone"]["same_iterations"]
+            and b0["cone"]["x_max_abs_err"] == 0.0):
+        fails.append(f"cone lanes {b0['cone']}")
+    rec["ok"] = not fails
+    rec["fails"] = fails
+    emit(rec)
+    for g in r0["graph"]:
+        print(f"mesh {g['case']} {g['plan']}: sharded {g['ms_per_iter']:.4f} ms/iter, "
+              f"single-device eager {g['ref_ms_per_iter']:.4f} ms/iter", flush=True)
+    for kind, c in r0["budget"].items():
+        print(f"mesh all-reduces per {'DR' if kind == 'dr' else 'ADMM'} iteration ({kind}): "
+              f"{c['vector']:g} vector ({c['vector_bytes']:g} B), "
+              f"{c['small']:g} small ({c['small_bytes']:g} B)", flush=True)
+    for name, us in ((f"gloo, {MESH_RANKS} ranks on {MESH_DEVICE}", r0["all_reduce_us"]),
+                     ("nccl, 1 rank", nccl[0]["all_reduce_us"])):
+        print(f"mesh all_reduce ({name}), median us by elements: "
+              + ", ".join(f"{n}: {t:.1f}" for n, t in us.items()), flush=True)
+    for sp_ in r0["sparse"]:
+        print(f"mesh sparse {sp_['case']} ({sp_['hold']}): {sp_['iterations']} DR iterations, "
+              f"sharded {sp_['ms_per_dr_iter']:.2f} ms/iter, single-device "
+              f"{sp_['ref_ms_per_dr_iter']:.2f} ms/iter, x err {sp_['x_max_abs_err']:.3g}"
+              + (f", operator errors {sp_['op_errors']}" if "op_errors" in sp_ else ""),
+              flush=True)
+    print(f"mesh spawn: {MESH_RANKS} gloo ranks {wall:.1f} s to done, group init "
+          f"{max(rec['group_init_s']):.1f} s; nccl 1 rank {nccl_wall:.1f} s", flush=True)
+    if fails:
+        raise AssertionError(f"phase 28: {fails}")
+    return {"fused_batched_lasso_sweep": k2, "fused_hsde_solve": k3}
+
+
 def main() -> int:
     import torch
 
@@ -3064,6 +3557,11 @@ def main() -> int:
         raise AssertionError("the port imported jax")
     smi = phase_device(torch)
     native_build = phase_build()
+    if "--mesh-only" in sys.argv[1:]:
+        # Phase 28 alone (after the build), for work on the sharded path.
+        phase_mesh(torch, P)
+        print(smi, flush=True)
+        return 0
     summary = phase_kernel_vs_plain(torch, P)
     launches = phase_main_path(torch, P)
     phase_real_size(torch, P)
@@ -3116,6 +3614,10 @@ def main() -> int:
     emit({"phase": "slice7_path_launches", **slice7_launches})
     if not slice7_launches["fused_admm_loop"] or not slice7_launches["fused_hsde_solve"]:
         raise AssertionError(f"slice 7's path launched {slice7_launches}")
+    # Slice 8's path: the ranks' shares of the batches over a mesh launch K2
+    # and K3 (counted in the ranks; a sharded single solve launches nothing).
+    mesh_launches = phase_mesh(torch, P)
+    emit({"phase": "mesh_path_launches", **mesh_launches})
     if "jax" in sys.modules or "pogs_tpu" in sys.modules:
         raise AssertionError("the port imported jax or pogs_tpu")
     # No single PyTorch call computes an ADMM or HSDE solve: library_ms null.
@@ -3145,7 +3647,8 @@ def main() -> int:
         "name": "fused_batched_lasso_sweep_resident", "route": "cuda",
         "source": "pogs_tpu_torch/csrc/fused_admm_batch.cu",
         "replaces": "pogs_tpu/ops/fused_admm_batch.py:415",
-        "launches": batched["launches_bench"]["resident"],
+        "launches": (batched["launches_bench"]["resident"]
+                     + mesh_launches["fused_batched_lasso_sweep"]),
         "max_abs_err": summary_b["resident"]["max_abs_err"],
         "ms": summary_b["resident"]["ms"], "plain_ms": summary_b["plain_ms"],
         "bound_ms": summary_b["bound_ms"], "bound_by": summary_b["bound_by"],
@@ -3156,7 +3659,8 @@ def main() -> int:
         "replaces": "pogs_tpu/ops/fused_hsde.py:555",
         "launches": (launches_h + qp_launches["fused_hsde_solve"]
                      + diff_launches["fused_hsde_solve"]
-                     + slice7_launches["fused_hsde_solve"]),
+                     + slice7_launches["fused_hsde_solve"]
+                     + mesh_launches["fused_hsde_solve"]),
         "max_abs_err": summary_h["max_abs_err"],
         "ms": summary_h["ms"], "plain_ms": summary_h["plain_ms"],
         "bound_ms": summary_h["bound_ms"], "bound_by": summary_h["bound_by"],

@@ -58,6 +58,9 @@ from pogs_tpu_torch.api.qp import solve_lp, solve_qp, solve_qps
 from pogs_tpu_torch.parallel.batch import (
     batched_cone_solve, batched_qp_solve, warm_path_cone_solve,
 )
+# As in the JAX package, the mesh helpers are importable from the package and
+# listed in ``parallel.__all__``, not in the package's ``__all__``.
+from pogs_tpu_torch.parallel import make_mesh, shard_matrix, replicate  # noqa: F401
 from pogs_tpu_torch.api.diff import (
     make_diff_solver,
     diff_lasso,

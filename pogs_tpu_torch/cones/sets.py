@@ -22,6 +22,7 @@ from pogs_tpu_torch.cones.projections import (
     project_exp_primal,
     project_exp_dual,
 )
+from pogs_tpu_torch.linalg.matrix import split_bounds
 
 _SEPARABLE = (Cone.ZERO, Cone.NON_NEG, Cone.NON_POS)
 
@@ -196,3 +197,147 @@ class ConeSet:
                         scale[con.indices[k]] = np.sqrt(2.0)
                     k += 1
         return scale
+
+
+class ShardedConeSet:
+    """A :class:`ConeSet` over a vector split across ranks, as a sharded
+    operator splits its y side (``parallel/mesh.py``): this rank holds the
+    entries [A.lo, A.hi).
+
+    Separable cones and the cones that lie inside this rank's block project
+    locally.  A cone that spans blocks is known to every rank (the
+    structure is whole everywhere), so every rank takes part in one stacked
+    ``reduce`` per projection: each SOC segment's head and tail sum of
+    squares, and the entries of each exponential or PSD segment, which are
+    then projected whole; each rank keeps its own entries.  The global
+    structure (masks, sizes, the polish's plan) is ``whole``'s.
+    """
+
+    def __init__(self, whole: ConeSet, A):
+        self.whole = whole
+        self.A = A
+        lo, hi = A.lo, A.hi
+        self.dim = hi - lo
+        R = A.mesh.size(A.axis)
+        bounds = np.asarray([split_bounds(whole.dim, R, k)[0] for k in range(R + 1)])
+        local, soc, gathered = [], [], []
+        for c in whole.constraints:
+            idx = np.asarray(c.indices, np.int64)
+            mine = (idx >= lo) & (idx < hi)
+            if is_separable(c.cone):
+                if mine.any():
+                    local.append(ConeConstraint(c.cone, idx[mine] - lo))
+            elif len(np.unique(np.searchsorted(bounds, idx, side="right"))) == 1:
+                if mine.all():
+                    local.append(ConeConstraint(c.cone, idx - lo))
+            elif c.cone == Cone.SOC:
+                soc.append(idx)
+            else:
+                gathered.append(c)
+        self.local = ConeSet(local, self.dim, validate=False)
+        self._soc = soc
+        self._gathered = gathered
+        # The gathered cones over a buffer of their entries, in order.
+        g_idx = [i for c in gathered for i in c.indices]
+        self._g_idx = np.asarray(g_idx, np.int64)
+        pos, k = [], 0
+        for c in gathered:
+            pos.append(ConeConstraint(c.cone, range(k, k + len(c.indices))))
+            k += len(c.indices)
+        self._g_set = ConeSet(pos, k, validate=False) if gathered else None
+        self._tables = {}
+
+    @property
+    def spans_shards(self) -> bool:
+        """Whether a projection makes a collective."""
+        return bool(self._soc or self._gathered)
+
+    def _device(self, device):
+        """Per SOC segment: the local positions of its head and tail entries
+        (``seg`` the segment of each tail entry); the gathered entries held
+        here, by local position and buffer position."""
+        key = str(device)
+        if key not in self._tables:
+            lo, hi = self.A.lo, self.A.hi
+            heads_loc, heads_seg, tail_loc, tail_seg = [], [], [], []
+            for j, idx in enumerate(self._soc):
+                if lo <= idx[0] < hi:
+                    heads_loc.append(idx[0] - lo)
+                    heads_seg.append(j)
+                for i in idx[1:]:
+                    if lo <= i < hi:
+                        tail_loc.append(i - lo)
+                        tail_seg.append(j)
+            g_mine = (self._g_idx >= lo) & (self._g_idx < hi)
+
+            def t(v):
+                return torch.as_tensor(np.asarray(v, np.int64), device=device)
+
+            self._tables[key] = (t(heads_loc), t(heads_seg), t(tail_loc), t(tail_seg),
+                                 t(self._g_idx[g_mine] - lo), t(np.flatnonzero(g_mine)))
+        return self._tables[key]
+
+    def project(self, v):
+        out = self.local.project(v)
+        if not self.spans_shards:
+            return out
+        h_loc, h_seg, t_loc, t_seg, g_loc, g_pos = self._device(v.device)
+        J = len(self._soc)
+        G = len(self._g_idx)
+        buf = torch.zeros(2 * J + G, dtype=v.dtype, device=v.device)
+        buf[h_seg] = v[h_loc]
+        buf[J:2 * J] = buf[J:2 * J].index_add(0, t_seg, v[t_loc] * v[t_loc])
+        buf[2 * J + g_pos] = v[g_loc]
+        buf = self.A.reduce(buf)
+        out = out.clone()
+        if J:
+            # project_soc's closed form on (head, ‖tail‖) of each segment.
+            p, nrm = buf[:J], torch.sqrt(buf[J:2 * J])
+            tiny = torch.finfo(v.dtype).tiny
+            scale = 0.5 * (1.0 + p / torch.clamp(nrm, min=tiny))
+            general = nrm >= torch.abs(p)
+            polar = nrm <= -p
+            head = torch.where(polar, torch.zeros_like(p),
+                               torch.where(general, scale * nrm, p))
+            tail_scale = torch.where(polar, torch.zeros_like(p),
+                                     torch.where(general, scale, torch.ones_like(p)))
+            out[h_loc] = head[h_seg]
+            out[t_loc] = v[t_loc] * tail_scale[t_seg]
+        if G:
+            proj = self._g_set.project(buf[2 * J:])
+            out[g_loc] = proj[g_pos]
+        return out
+
+    def dual(self) -> "ShardedConeSet":
+        return ShardedConeSet(self.whole.dual(), self.A)
+
+    def constrain_average(self, w):
+        """Average w within each non-separable cone; a cone that spans
+        blocks sums its entries through one ``reduce``."""
+        w = self.local.constrain_average(w)
+        spans = self._soc + [np.asarray(c.indices, np.int64) for c in self._gathered]
+        if not spans:
+            return w
+        lo, hi = self.A.lo, self.A.hi
+        loc, seg = [], []
+        for j, idx in enumerate(spans):
+            for i in idx:
+                if lo <= i < hi:
+                    loc.append(i - lo)
+                    seg.append(j)
+        loc = torch.as_tensor(np.asarray(loc, np.int64), device=w.device)
+        seg = torch.as_tensor(np.asarray(seg, np.int64), device=w.device)
+        sums = torch.zeros(len(spans), dtype=w.dtype, device=w.device).index_add(0, seg, w[loc])
+        sums = self.A.reduce(sums)
+        sizes = torch.as_tensor([float(len(s)) for s in spans], dtype=w.dtype, device=w.device)
+        w = w.clone()
+        w[loc] = (sums / sizes)[seg]
+        return w
+
+
+def shard_cones(cones, A):
+    """``cones`` over the y side of A: a :class:`ShardedConeSet` where a
+    sharded A splits that side, else ``cones`` itself."""
+    if getattr(A, "sharded_side", None) != "m" or isinstance(cones, ShardedConeSet):
+        return cones
+    return ShardedConeSet(cones, A)

@@ -23,6 +23,8 @@ from typing import Callable
 
 import torch
 
+from pogs_tpu_torch.linalg.matrix import side_sums
+
 # How often the host reads the device-side done flag.
 CHECK_EVERY = 2
 STALL_WINDOW = 50
@@ -59,8 +61,13 @@ def run_frozen(body, state: dict, max_iter: int, check_every: int, counter) -> d
     return state
 
 
-def cgls_solve(matvec: Callable, rmatvec: Callable, b, x0, shift, tol, max_iter: int = 500):
-    """Returns (x, iterations); ``iterations`` is a device tensor."""
+def cgls_solve(matvec: Callable, rmatvec: Callable, b, x0, shift, tol, max_iter: int = 500,
+               A=None):
+    """Returns (x, iterations); ``iterations`` is a device tensor.
+
+    ``A``, a sharded operator whose products ``matvec`` / ``rmatvec`` are,
+    sums the dots and norms of its split side through its ``reduce``: b and
+    the residual are y-side, x and the gradient x-side."""
     dt, dev = b.dtype, b.device
     shift = torch.as_tensor(shift, dtype=dt, device=dev)
     tol = torch.as_tensor(tol, dtype=dt, device=dev)
@@ -68,26 +75,28 @@ def cgls_solve(matvec: Callable, rmatvec: Callable, b, x0, shift, tol, max_iter:
 
     r = b - matvec(x0)
     s = rmatvec(r) - shift * x0
-    norms0 = torch.linalg.vector_norm(s)
+    norms0, = side_sums(A, "n", [("norm", s)])
     zero = torch.zeros((), dtype=torch.int32, device=dev)
 
     def body(st):
         x, r, p, gamma, k = st["x"], st["r"], st["p"], st["gamma"], st["k"]
         q = matvec(p)
-        delta = torch.dot(q, q) + shift * torch.dot(p, p)
+        qq, = side_sums(A, "m", [("dot", q, q)])
+        pp, = side_sums(A, "n", [("dot", p, p)])
+        delta = qq + shift * pp
         delta = torch.where(delta <= 0, torch.full_like(delta, eps), delta)
         alpha = gamma / delta
         x = x + alpha * p
         r = r - alpha * q
         s = rmatvec(r) - shift * x
-        gamma_new = torch.dot(s, s)
+        gamma_new, x_norm = side_sums(A, "n", [("dot", s, s), ("norm", x)])
         p = s + (gamma_new / gamma) * p
         norms = torch.sqrt(gamma_new)
         improved = norms < st["norms_best"]
         x_best = torch.where(improved, x, st["x_best"])
         k_best = torch.where(improved, k, st["k_best"])
         norms_best = torch.minimum(norms, st["norms_best"])
-        converged = (norms <= norms0 * tol) | (torch.linalg.vector_norm(x) * tol >= 1.0)
+        converged = (norms <= norms0 * tol) | (x_norm * tol >= 1.0)
         diverged = norms > DIV_FACTOR * norms_best
         stalled = (k - k_best) >= STALL_WINDOW
         why = torch.where(converged, 1, torch.where(diverged, 2, torch.where(stalled, 3, 0)))

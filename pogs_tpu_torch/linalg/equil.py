@@ -13,7 +13,11 @@ Counterpart of ``pogs_tpu/linalg/equil.py``:
 
 A sparse operator takes the operator path of the JAX package: Sinkhorn on
 the view of its elementwise square (``sq_mv``/``sq_rmv``), then ``scale``,
-``frob2`` and ``scalar_mul``; nothing is densified.
+``frob2`` and ``scalar_mul``; nothing is densified.  So does a sharded
+operator (``parallel/mesh.py``): its products carry the collectives, the
+live-row and live-column counts of the split side are summed through its
+``reduce`` hook, and the zero rows that pad a shard stay pinned to scale 1,
+inert as every other zero row.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import Callable, Optional
 
 import torch
 
-from pogs_tpu_torch.linalg.matrix import DenseMatrix, SparseMatrix
+from pogs_tpu_torch.linalg.matrix import DenseMatrix, SparseMatrix, is_sharded, local_shape, side_sums
 
 SINKHORN_CONST = 1e-4
 EQUIL_ITERS = 50
@@ -40,8 +44,11 @@ class EquilResult:
 
 def sinkhorn_knopp(bm, brm, m: int, n: int, dt, device, iters: int = EQUIL_ITERS,
                    constrain_d: Optional[Callable] = None,
-                   constrain_e: Optional[Callable] = None):
+                   constrain_e: Optional[Callable] = None, A=None):
     """Modified Sinkhorn–Knopp on a nonnegative operator (bm = B@, brm = Bᵀ@).
+
+    ``m`` and ``n`` are the lengths of the vectors this rank holds; ``A``,
+    a sharded operator, sums the live counts across its shards.
 
     Alternates e ← m_eff / (Bᵀ d + reg_e) and d ← n_eff / (B e + reg_d).  The
     hooks act on the accumulations after the zero rows and columns are
@@ -52,8 +59,8 @@ def sinkhorn_knopp(bm, brm, m: int, n: int, dt, device, iters: int = EQUIL_ITERS
     col_mass = brm(torch.ones(m, dtype=dt, device=device))
     row_live = row_mass > 0
     col_live = col_mass > 0
-    m_eff = torch.clamp(torch.sum(row_live.to(dt)), min=1.0)
-    n_eff = torch.clamp(torch.sum(col_live.to(dt)), min=1.0)
+    m_eff = torch.clamp(side_sums(A, "m", [("sum", row_live.to(dt))])[0], min=1.0)
+    n_eff = torch.clamp(side_sums(A, "n", [("sum", col_live.to(dt))])[0], min=1.0)
     reg_e = SINKHORN_CONST * (m_eff + n_eff) / m_eff
     reg_d = SINKHORN_CONST * (m_eff + n_eff) / n_eff
 
@@ -74,7 +81,7 @@ def equilibrate(A, constrain_d: Optional[Callable] = None,
                 iters: int = EQUIL_ITERS) -> EquilResult:
     """Full equilibration pipeline. ``A`` is a tensor, a DenseMatrix or a
     SparseMatrix; the returned ``EquilResult.A`` is of the same kind."""
-    if isinstance(A, SparseMatrix):
+    if isinstance(A, SparseMatrix) or is_sharded(A):
         return _equilibrate_op(A, constrain_d, constrain_e, iters)
     is_op = isinstance(A, DenseMatrix)
     At = A.dense() if is_op else A
@@ -101,9 +108,10 @@ def _equilibrate_op(A, constrain_d, constrain_e, iters) -> EquilResult:
     """The pipeline on an operator: Sinkhorn on A∘A through sq_mv/sq_rmv,
     then A.scale(d, e) normalized by its Frobenius norm."""
     m, n = A.shape
+    m_loc, n_loc = local_shape(A)
     dt, dev = A.dtype, A.device
-    d, e = sinkhorn_knopp(A.sq_mv, A.sq_rmv, m, n, dt, dev, iters,
-                          constrain_d, constrain_e)
+    d, e = sinkhorn_knopp(A.sq_mv, A.sq_rmv, m_loc, n_loc, dt, dev, iters,
+                          constrain_d, constrain_e, A=A)
     d = torch.sqrt(d)
     e = torch.sqrt(e)
     A_eq = A.scale(d, e)

@@ -231,7 +231,7 @@ def as_matrix_op(A, dtype=None, device=None):
     (default: a tensor's own device, else the CPU) in ``dtype`` (default:
     float64 input in float64, anything else in float32).  Duplicate
     coordinates are summed."""
-    if isinstance(A, (DenseMatrix, SparseMatrix)):
+    if isinstance(A, (DenseMatrix, SparseMatrix)) or is_sharded(A):
         return A
     if device is None:
         device = A.device if isinstance(A, torch.Tensor) else torch.device("cpu")
@@ -243,6 +243,72 @@ def as_matrix_op(A, dtype=None, device=None):
         return SparseMatrix.from_coo(ij[0], ij[1], T.values(), tuple(T.shape))
     A_t = A if isinstance(A, torch.Tensor) else torch.as_tensor(np.asarray(A))
     return DenseMatrix(A_t.to(device=device, dtype=dtype))
+
+
+def split_bounds(total: int, parts: int, index: int):
+    """[lo, hi) of block ``index`` of ``total`` split into ``parts``
+    contiguous blocks, the first ``total % parts`` one longer (how a sharded
+    operator splits its side)."""
+    base, extra = divmod(total, parts)
+    lo = index * base + min(index, extra)
+    return lo, lo + base + (1 if index < extra else 0)
+
+
+def is_sharded(A) -> bool:
+    """A sharded operator (``parallel/mesh.py``, ``parallel/sparse.py``)."""
+    return getattr(A, "sharded_side", None) is not None
+
+
+def local_shape(A):
+    """The lengths (m, n) of the y- and x-side vectors this rank holds: A's
+    shape, or a sharded operator's ``local_shape``."""
+    return tuple(getattr(A, "local_shape", A.shape))
+
+
+def whole(A, side: str, v):
+    """A vector of ``side`` ("m" or "n") whole: gathered where A splits that
+    side, else ``v`` itself."""
+    return A.gather(v) if getattr(A, "sharded_side", None) == side else v
+
+
+def part(A, side: str, v):
+    """This rank's part of a whole vector of ``side``."""
+    return A.local(v) if getattr(A, "sharded_side", None) == side else v
+
+
+def side_total(A, side: str, t):
+    """A scalar partial sum over ``side`` summed across the shards that split
+    it (one ``reduce``); ``t`` itself elsewhere."""
+    if getattr(A, "sharded_side", None) == side:
+        return A.reduce(t.reshape(1))[0]
+    return t
+
+
+def side_sums(A, side: str, terms):
+    """The sums of one side's vectors: each term ``("norm", v)``,
+    ``("sum2", v)``, ``("dot", u, v)`` or ``("sum", v)``.
+
+    Where A splits ``side`` the local partial sums (a norm's as its sum of
+    squares) go through ONE ``A.reduce`` and the norms take their square
+    root after it; elsewhere each term is the single-device call itself, so
+    an unsharded solve computes what it always did.  Returns a list."""
+    sharded = getattr(A, "sharded_side", None) == side
+    vals = []
+    for kind, *ts in terms:
+        if kind == "norm":
+            vals.append(torch.sum(ts[0] * ts[0]) if sharded else torch.linalg.vector_norm(ts[0]))
+        elif kind == "sum2":
+            vals.append(torch.sum(ts[0] * ts[0]))
+        elif kind == "dot":
+            vals.append(torch.dot(ts[0], ts[1]))
+        elif kind == "sum":
+            vals.append(torch.sum(ts[0]))
+        else:
+            raise ValueError(f"unknown sum {kind!r}")
+    if not sharded or not vals:
+        return vals
+    red = A.reduce(torch.stack(vals))
+    return [torch.sqrt(red[i]) if t[0] == "norm" else red[i] for i, t in enumerate(terms)]
 
 
 def matvecs(A):

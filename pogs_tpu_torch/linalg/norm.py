@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from pogs_tpu_torch.linalg.matrix import matvecs
+from pogs_tpu_torch.linalg.matrix import matvecs, part, side_sums
 
 NORM_EST_TOL = 1e-4
 NORM_EST_MAX_ITER = 50
@@ -25,7 +25,10 @@ def norm2_est(A, tol: float = NORM_EST_TOL, max_iter: int = NORM_EST_MAX_ITER,
     tensor or a matrix operator).
 
     ``x0`` is the start vector; without one it is drawn uniformly on [0, 1)
-    from a ``torch.Generator`` seeded with ``seed``.
+    from a ``torch.Generator`` seeded with ``seed``.  On a sharded operator
+    the whole start vector is drawn on every rank, and a rank that holds a
+    block of columns takes its part, so the ranks agree; ‖Aᵀ A x‖ and
+    ‖A x‖ sum their split side through the operator's ``reduce``.
     """
     m, n = A.shape
     dt, dev = A.dtype, A.device
@@ -33,13 +36,13 @@ def norm2_est(A, tol: float = NORM_EST_TOL, max_iter: int = NORM_EST_MAX_ITER,
     if x0 is None:
         gen = torch.Generator().manual_seed(seed)
         x0 = torch.rand(n, generator=gen, dtype=torch.float32)
-    x = x0.to(dtype=dt, device=dev)
+    x = part(A, "n", x0.to(dtype=dt, device=dev))
 
     def sweep(x):
         sx = amv(x)
         x = armv(sx)
-        normx = torch.linalg.vector_norm(x)
-        norm_sx = torch.linalg.vector_norm(sx)
+        normx, = side_sums(A, "n", [("norm", x)])
+        norm_sx, = side_sums(A, "m", [("norm", sx)])
         # A zero operator yields ‖A‖₂ = 0, not 0/0 = NaN.
         safe = normx > 0
         x = torch.where(safe, x / torch.where(safe, normx, torch.ones_like(normx)),

@@ -1,5 +1,6 @@
-"""Batched solves on one GPU: λ-sweeps, multi-right-hand-side sweeps,
-warm-started λ-paths, and batched and warm-path cone and QP solves.
+"""Batched solves: λ-sweeps, multi-right-hand-side sweeps, warm-started
+λ-paths, and batched and warm-path cone and QP solves, on one GPU or with
+the lanes spread over a mesh.
 
 Counterpart of ``pogs_tpu/parallel/batch.py``.  In the graph form all lanes
 share one init: equilibration, the ‖A‖₂ estimate and the explicit
@@ -23,8 +24,14 @@ runs one HSDE solve: one launch of the cone kernel on CUDA where it applies
 lane, where the JAX package vmaps the loop.  A lane's result does not
 depend on K.
 
-The JAX package's mesh arguments have no counterpart yet: the port runs on
-one GPU.
+With ``mesh=`` (``parallel/mesh.py``) the lanes split into contiguous
+blocks over the mesh's ``batch_axis``; every rank keeps the whole A and
+makes the shared init, as the JAX package replicates A and shards the batch
+axis.  Each rank's block runs as above: one launch of the batched kernel,
+or its cone-kernel launches, or the eager loop.  The lanes never talk to
+each other, so a lane's result does not depend on which rank holds it; the
+results come back whole on every rank, gathered over the batch axis by one
+all_reduce each.  Ranks that differ on the other axes solve the same lanes.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from pogs_tpu_torch.linalg.equil import equilibrate
 from pogs_tpu_torch.linalg.norm import norm2_est
 from pogs_tpu_torch.projector.direct import DirectProjector
 from pogs_tpu_torch.solver.admm import admm_loop
-from pogs_tpu_torch.linalg.matrix import is_sparse_input
+from pogs_tpu_torch.linalg.matrix import is_sharded, is_sparse_input
 from pogs_tpu_torch.solver.graph import _use_fused, resolve_device
 from pogs_tpu_torch.ops.fused_admm import _fv, fused_admm_loop, fused_admm_supported
 from pogs_tpu_torch.ops.fused_admm_batch import fused_batched_lasso_sweep
@@ -53,6 +60,7 @@ from pogs_tpu_torch.solver.cone import epigraph_extension, epigraph_factor, smw_
 from pogs_tpu_torch.solver.hsde import hsde_solve
 from pogs_tpu_torch.solver.qp_polish import active_set_polish, row_kinds
 from pogs_tpu_torch.utils.precision import highest_precision
+from pogs_tpu_torch.parallel.mesh import all_reduce, split_bounds
 
 
 def _fused_batch_eligible(dtype, device, settings: SolverSettings, c_kind: str,
@@ -88,6 +96,9 @@ def _fused_batch_eligible(dtype, device, settings: SolverSettings, c_kind: str,
 def _matrix(A, device) -> torch.Tensor:
     """A as a dense tensor on ``device``: float64 input solves in float64,
     anything else in float32, as ``GraphFormSolver``."""
+    if is_sharded(A):
+        raise TypeError("batched solves take the whole A on every rank; a mesh's "
+                        "batch axis splits the lanes")
     if is_sparse_input(A):
         # As in the JAX package, whose batches take A through jnp.asarray.
         raise NotImplementedError(
@@ -95,6 +106,37 @@ def _matrix(A, device) -> torch.Tensor:
     A_t = A if isinstance(A, torch.Tensor) else torch.as_tensor(np.asarray(A))
     dtype = torch.float64 if A_t.dtype == torch.float64 else torch.float32
     return A_t.to(device=device, dtype=dtype)
+
+
+def _lane_block(mesh, batch_axis: str, K: int):
+    """[lo, hi) of the lanes this rank solves: all of them without a mesh.
+    Every rank of the batch axis takes at least one lane."""
+    if mesh is None:
+        return 0, K
+    mesh.check_axis(batch_axis)
+    if K < mesh.size(batch_axis):
+        raise ValueError(f"{K} lanes over a batch axis of {mesh.size(batch_axis)} ranks: "
+                         "every rank needs a lane")
+    return split_bounds(K, mesh.size(batch_axis), mesh.index(batch_axis))
+
+
+def _gather_lanes(mesh, batch_axis: str, out: dict, K: int, lo: int) -> dict:
+    """Each (k, ...) tensor of ``out`` (this rank's lanes from ``lo``) whole
+    as (K, ...) on every rank: a zero-padded buffer summed over the batch
+    axis."""
+    if mesh is None:
+        return out
+    group = mesh.group(batch_axis)
+    whole = {}
+    for key, v in out.items():
+        buf = torch.zeros((K,) + tuple(v.shape[1:]), dtype=v.dtype, device=v.device)
+        buf[lo:lo + v.shape[0]] = v
+        whole[key] = all_reduce(buf, group)
+    return whole
+
+
+def _mesh_device(mesh, device):
+    return device if device is not None or mesh is None else mesh.device
 
 
 def _params(fv: FunctionVector, dt, dev):
@@ -134,6 +176,8 @@ def batched_graph_solve(
     g_e_batch=None,
     f_b_batch=None,
     settings: Optional[SolverSettings] = None,
+    mesh=None,
+    batch_axis: str = "batch",
     device=None,
 ):
     """Solve min f_k(y) + g_k(x) s.t. y = Ax for a batch of parameter
@@ -150,11 +194,15 @@ def batched_graph_solve(
     vmapped loop: its batched while-loop leaves a finished lane unchanged,
     and the tests hold the port to it lane for lane.
 
+    With ``mesh`` the lanes split over ``batch_axis`` (see the module
+    note): each rank's block is one launch of the batched kernel where it
+    applies.
+
     Returns a dict of tensors: x (K, n), y (K, m), optval, iterations and
     status, each (K,).
     """
     settings = settings or SolverSettings()
-    dev = resolve_device(A, device)
+    dev = resolve_device(A, _mesh_device(mesh, device))
     A = _matrix(A, dev)
     dt = A.dtype
     m, n = A.shape
@@ -171,6 +219,18 @@ def batched_graph_solve(
     e_arg, e_kind = _batch_arg(g_e_batch, K, n, dt, dev)
     fb_arg, fb_kind = _batch_arg(f_b_batch, K, m, dt, dev, per_lane_scalar_ok=False)
     fused = _fused_batch_eligible(dt, dev, settings, c_kind, e_kind, fb_kind)
+    lo, hi = _lane_block(mesh, batch_axis, K)
+    if mesh is not None:
+        # This rank's lanes; the shared arguments stay as they are.
+        K_all, K = K, hi - lo
+        c_arg = c_arg if c_kind == "shared" else c_arg[lo:hi]
+        e_arg = e_arg if e_kind == "shared" else e_arg[lo:hi]
+        fb_arg = fb_arg if fb_kind == "shared" else fb_arg[lo:hi]
+        out = batched_graph_solve(A, f, g, c_arg if c_kind != "shared" else None,
+                                  e_arg if e_kind != "shared" else None,
+                                  fb_arg if fb_kind != "shared" else None,
+                                  settings=settings, device=dev)
+        return _gather_lanes(mesh, batch_axis, out, K_all, lo)
 
     with highest_precision():
         eq = equilibrate(A)
@@ -300,14 +360,20 @@ def solve_lasso_path(
     b,
     lambdas,
     settings: Optional[SolverSettings] = None,
+    mesh=None,
     warm: bool = False,
     device=None,
 ):
     """The lasso λ-path min ½‖Ax − b‖² + λ‖x‖₁ for every λ in ``lambdas``:
-    independent lanes by default (``batched_graph_solve``), or warm-started
-    one after another (``warm=True``, ``warm_path_graph_solve``; order the
-    λ values large to small)."""
-    dev = resolve_device(A, device)
+    independent lanes by default (``batched_graph_solve``, spread over
+    ``mesh``'s ``batch`` axis when given), or warm-started one after
+    another (``warm=True``, ``warm_path_graph_solve``; order the λ values
+    large to small), which runs on one device and takes no mesh."""
+    if warm and mesh is not None:
+        raise ValueError(
+            "warm=True runs a sequential path on one device; mesh "
+            "sharding applies to the independent (warm=False) batch")
+    dev = resolve_device(A, _mesh_device(mesh, device))
     A = _matrix(A, dev)
     m, n = A.shape
     b = torch.as_tensor(b).reshape(-1)
@@ -315,19 +381,12 @@ def solve_lasso_path(
     g = FunctionVector(Function.ABS, n, dtype=A.dtype)
     if warm:
         return warm_path_graph_solve(A, f, g, lambdas, settings=settings, device=dev)
-    return batched_graph_solve(A, f, g, lambdas, settings=settings, device=dev)
+    return batched_graph_solve(A, f, g, lambdas, settings=settings, mesh=mesh, device=dev)
 
 
 # ---------------------------------------------------------------------------
 # Batched and warm-path cone solves.
 # ---------------------------------------------------------------------------
-
-def _single_device(mesh, batch_axis):
-    if mesh is not None or batch_axis is not None:
-        raise NotImplementedError(
-            "mesh / batch_axis: the port runs on one GPU; multi-device batches are "
-            "queue 1's item 18 (ROADMAP.md)")
-
 
 class _ConeLanes:
     """One init for a batch of cone problems on a dense A: equilibration
@@ -403,7 +462,7 @@ def batched_cone_solve(
     settings: Optional[SolverSettings] = None,
     strategy: str = "smw",
     mesh=None,
-    batch_axis=None,
+    batch_axis: str = "batch",
     device=None,
 ):
     """Solve a batch of cone problems  min c_k'x  s.t.  b_k − A x ∈ K_y
@@ -411,24 +470,26 @@ def batched_cone_solve(
     states): equilibrate and factor once, then one HSDE solve per lane (one
     cone-kernel launch each on CUDA where it applies).
 
-    ``b_batch``: (K, m); ``c_batch``: (K, n) or (n,) for every lane.
-    ``mesh`` and ``batch_axis`` must be None (one GPU).  Returns a dict of
-    tensors: x (K, n), y (K, m), nu (K, m), optval, iterations and status,
-    each (K,).
+    ``b_batch``: (K, m); ``c_batch``: (K, n) or (n,) for every lane.  With
+    ``mesh`` the lanes split over ``batch_axis`` (see the module note).
+    Returns a dict of tensors: x (K, n), y (K, m), nu (K, m), optval,
+    iterations and status, each (K,).
     """
-    _single_device(mesh, batch_axis)
-    lanes = _ConeLanes(A, Ky, settings or SolverSettings(), strategy, device)
+    lanes = _ConeLanes(A, Ky, settings or SolverSettings(), strategy,
+                       _mesh_device(mesh, device))
     bs = lanes.tensor(b_batch)
     cs = lanes.tensor(c_batch)
     K = bs.shape[0]
     if cs.dim() == 1:
         cs = cs.expand(K, -1)
+    lo, hi = _lane_block(mesh, batch_axis, K)
     eq = lanes.eq
     out = []
-    for k in range(K):
+    for k in range(lo, hi):
         b_s, c_s = bs[k] * eq.d, cs[k] * eq.e
         out.append(lanes.unscale(lanes.solve(b_s, c_s), bs[k], b_s, cs[k]))
-    return _stack(out, ("x", "y", "nu", "optval", "iterations", "status"))
+    out = _stack(out, ("x", "y", "nu", "optval", "iterations", "status"))
+    return _gather_lanes(mesh, batch_axis, out, K, lo)
 
 
 def warm_path_cone_solve(
@@ -474,7 +535,7 @@ def batched_qp_solve(
     settings: Optional[SolverSettings] = None,
     strategy: str = "smw",
     mesh=None,
-    batch_axis=None,
+    batch_axis: str = "batch",
     polish: bool = True,
     device=None,
 ):
@@ -489,11 +550,11 @@ def batched_qp_solve(
     SUCCESS or MAX_ITER lane then gets the host f64 PDAS polish, once, at
     the end of its solve, as in the JAX package.
 
-    ``b_batch``: (K, m); ``c_batch``: (K, n) or (n,).  Returns a dict of
-    numpy arrays: x (K, n), nu (K, m), optval, iterations, status and
-    polished, each (K,).
+    ``b_batch``: (K, m); ``c_batch``: (K, n) or (n,).  With ``mesh`` the
+    cone solves split over ``batch_axis`` and every rank polishes every
+    lane, on the host.  Returns a dict of numpy arrays: x (K, n), nu (K, m),
+    optval, iterations, status and polished, each (K,).
     """
-    _single_device(mesh, batch_axis)
     settings = settings or SolverSettings()
     if isinstance(A, torch.Tensor):
         A = A.detach().cpu()
@@ -519,7 +580,8 @@ def batched_qp_solve(
     Ky_ext = list(Ky) + [ConeConstraint(Cone.SOC, range(m, m + r + 2))]
 
     out = batched_cone_solve(A_ext, b_ext, c_ext, Ky_ext, settings=settings,
-                             strategy=strategy, device=device)
+                             strategy=strategy, mesh=mesh, batch_axis=batch_axis,
+                             device=device)
     x = out["x"][:, :n].cpu().double().numpy().copy()
     nu = out["nu"][:, :m].cpu().double().numpy().copy()
     status = out["status"].cpu().numpy().copy()

@@ -12,11 +12,19 @@ handful of matvecs.
 keeps the explicit SPD inverse L⁻ᵀL⁻¹; ``method='cholesky'`` keeps L and
 solves two triangular systems per projection.  The Gram, the factor and the
 inverse are library calls made once at init.
+
+On a sharded operator (``parallel/mesh.py``) the Gram is the all-reduced
+local Gram (``gram``), the factor is whole on every rank, and a projection
+takes the operator's ``mv`` and ``rmv`` with their collectives; where the
+Gram's side is the split one (a mismatched plan) the right-hand side is
+gathered and each rank keeps its part of the solve.
 """
 
 from __future__ import annotations
 
 import torch
+
+from pogs_tpu_torch.linalg.matrix import is_sharded, part, whole
 
 
 def _as_dense(A):
@@ -33,9 +41,12 @@ class DirectProjector:
 
     def init(self, A, s=1.0):
         """Factor (G + sI). Returns {"op": inverse or L, "s": s}."""
-        A = _as_dense(A)
         m, n = A.shape
-        G = A.T @ A if m >= n else A @ A.T
+        if is_sharded(A):
+            G = A.gram("n" if m >= n else "m")
+        else:
+            A = _as_dense(A)
+            G = A.T @ A if m >= n else A @ A.T
         k = G.shape[0]
         K = G + s * torch.eye(k, dtype=A.dtype, device=A.device)
         L = torch.linalg.cholesky(K)
@@ -54,6 +65,8 @@ class DirectProjector:
 
     def project(self, A, factor, x0, y0, tol=None, x_warm=None):
         """Project (x0, y0) onto {(x, y) : y = A x}. tol/x_warm unused here."""
+        if is_sharded(A):
+            return self._project_sharded(A, factor, x0, y0)
         A = _as_dense(A)
         m, n = A.shape
         s = factor["s"]
@@ -67,3 +80,14 @@ class DirectProjector:
             x = x0 - torch.mv(A.T, w)
             y = y0 + s * w
         return x, y
+
+    def _project_sharded(self, A, factor, x0, y0):
+        m, n = A.shape
+        s = factor["s"]
+        if m >= n:
+            rhs = s * x0 + A.rmv(y0)
+            x = part(A, "n", self._solve(factor, whole(A, "n", rhs)))
+            return x, A.mv(x)
+        rhs = A.mv(x0) - y0
+        w = part(A, "m", self._solve(factor, whole(A, "m", rhs)))
+        return x0 - A.rmv(w), y0 + s * w

@@ -7,7 +7,8 @@ formulation — solve
 
 by CGLS (numerically stabler than CG on the normal equations), then
 x = x0 + Δx, y = A x.  The tolerance is the residual-tied one the ADMM loop
-passes, and the warm start its previous x.
+passes, and the warm start its previous x.  A sharded operator's split side
+sums through its ``reduce`` inside CGLS.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ class CglsProjector:
         matvec, rmatvec = matvecs(A)
         b = y0 - matvec(x0)
         dx0 = (x_warm - x0) if x_warm is not None else torch.zeros_like(x0)
-        dx, _ = cgls_solve(matvec, rmatvec, b, dx0, factor["s"], tol, self.max_iter)
+        dx, _ = cgls_solve(matvec, rmatvec, b, dx0, factor["s"], tol, self.max_iter,
+                           A=A if hasattr(A, "rmv") else None)
         x = x0 + dx
         return x, matvec(x)

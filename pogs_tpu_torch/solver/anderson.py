@@ -35,11 +35,16 @@ def anderson_init(dim: int, mem: int, dtype, device=None) -> AndersonState:
 
 
 def anderson_step(st: AndersonState, s_prev, s_new, reg: float = 1e-10,
-                  max_weight: float = 20.0):
+                  max_weight: float = 20.0, split=None):
     """One step for the map output ``s_new = G(s_prev)``.
 
     Returns ``(s_acc, new_state)``.  ``s_acc`` equals ``s_new`` until at
     least one difference pair is stored; the caller decides when to use it.
+
+    ``split = (mask, reduce)`` serves a state of which each rank holds a
+    part (a sharded solve): the entries under ``mask`` are this rank's part
+    of the split side, the others whole on every rank; the Gram and the
+    right-hand side sum the split entries through one ``reduce``.
     """
     mem, _ = st.dF.shape
     dt, dev = s_new.dtype, s_new.device
@@ -59,9 +64,18 @@ def anderson_step(st: AndersonState, s_prev, s_new, reg: float = 1e-10,
     vf = valid.to(dt)
     dF_m = dF * vf[:, None]
     eye = torch.eye(mem, dtype=dt, device=dev)
-    gram = dF_m @ dF_m.T + reg * eye
+    if split is None:
+        gram = dF_m @ dF_m.T
+        rhs = dF_m @ f
+    else:
+        mask, reduce = split
+        dF_s, dF_w = dF_m[:, mask], dF_m[:, ~mask]
+        part = reduce(torch.cat([(dF_s @ dF_s.T).reshape(-1), dF_s @ f[mask]]))
+        gram = dF_w @ dF_w.T + part[:mem * mem].reshape(mem, mem)
+        rhs = dF_w @ f[~mask] + part[mem * mem:]
+    gram = gram + reg * eye
     gram = torch.where(valid[:, None] & valid[None, :], gram, eye)
-    rhs = (dF_m @ f) * vf
+    rhs = rhs * vf
     L, info = torch.linalg.cholesky_ex(gram)
     theta = torch.cholesky_solve(rhs[:, None], L)[:, 0] * vf
 

@@ -39,6 +39,12 @@ A sparse A (``sparse_policy``, as ``GraphFormSolver``'s) stays a
 SparseMatrix: the HSDE solve then takes the matrix-free ``cg`` strategy,
 and the graph-form cone path the CGLS projector; neither reaches the
 kernel.
+
+A row-sharded A (``parallel/mesh.py::shard_matrix``, the SMW strategy
+through the reduced Gram; ``parallel/sparse.py::shard_sparse``, the ``cg``
+strategy) runs the eager loops with K_y split as the rows are
+(``cones/sets.py::ShardedConeSet``); the kernel takes neither, and the
+result comes back whole on every rank.  QPs take no sharded A.
 """
 
 from __future__ import annotations
@@ -53,9 +59,12 @@ import torch
 from pogs_tpu_torch.types import (
     DEFAULT_RHO, Cone, ConeConstraint, SolverResult, SolverSettings, Status, _torch_dtype,
 )
-from pogs_tpu_torch.cones.sets import ConeSet
+from pogs_tpu_torch.cones.sets import ConeSet, shard_cones
 from pogs_tpu_torch.linalg.equil import equilibrate
-from pogs_tpu_torch.linalg.matrix import _torch_coo, input_dtype, is_sparse_input, matvecs
+from pogs_tpu_torch.linalg.matrix import (
+    _torch_coo, input_dtype, is_sharded, is_sparse_input, local_shape, matvecs, part,
+    side_sums, whole,
+)
 from pogs_tpu_torch.linalg.norm import norm2_est
 from pogs_tpu_torch.projector.direct import DirectProjector
 from pogs_tpu_torch.projector.indirect import CglsProjector
@@ -158,17 +167,23 @@ def smw_factor_from(A, Kinv, b_s, c_s) -> dict:
     """The SMW factor of scaled data (b_s, c_s) for a dense equilibrated A
     from the Gram inverse the direct projector caches: tall, Kinv =
     (I + AᵀA)⁻¹; wide, Woodbury through the m×m Kinv = (I + AAᵀ)⁻¹.  The
-    cone kernel takes Kinv, t_x, t_y and s_den; the eager loop ``apply``."""
+    cone kernel takes Kinv, t_x, t_y and s_den; the eager loop ``apply``,
+    which maps a whole x-side vector to a whole one.  On a sharded A the
+    products carry their collectives and t is this rank's parts."""
     m, n = A.shape
+    amv, armv = matvecs(A)
     if m >= n:
         def apply_kinv(v):
             return torch.mv(Kinv, v)
     else:
         def apply_kinv(v):
-            return v - torch.mv(A.T, torch.mv(Kinv, torch.mv(A, v)))
-    t_x = apply_kinv(c_s - torch.mv(A.T, b_s))
-    t_y = b_s + torch.mv(A, t_x)
-    s_den = 1.0 + torch.dot(c_s, t_x) + torch.dot(b_s, t_y)
+            w = torch.mv(Kinv, whole(A, "m", amv(part(A, "n", v))))
+            return v - whole(A, "n", armv(part(A, "m", w)))
+    t_x = part(A, "n", apply_kinv(whole(A, "n", c_s - armv(b_s))))
+    t_y = b_s + amv(t_x)
+    cx, = side_sums(A, "n", [("dot", c_s, t_x)])
+    by, = side_sums(A, "m", [("dot", b_s, t_y)])
+    s_den = 1.0 + cx + by
     return {"apply": apply_kinv, "t_x": t_x, "t_y": t_y, "s_den": s_den}
 
 
@@ -200,6 +215,10 @@ class ConeSolver:
         # The caller's A, for the QP routes' host work and epigraph extension.
         self._A_raw = A
         Aop = matrix_operator(A, self.dtype, self.device, sparse_policy)
+        self.sharded = is_sharded(Aop)
+        if self.sharded and Aop.sharded_side != "m":
+            raise NotImplementedError("a cone problem takes a row-sharded A "
+                                      "(shard_matrix or shard_sparse)")
         self.m, self.n = Aop.shape
         self.Kx = ConeSet(list(Kx), self.n)
         self.Ky = ConeSet(list(Ky), self.m)
@@ -210,8 +229,11 @@ class ConeSolver:
         self._col_scale = self.Kx.svec_scale()
         self._needs_svec = (self.Ky.has_sdp or self.Kx.has_sdp) and not assume_svec
         if self._needs_svec:
-            Aop = Aop.scale(self._tensor(self._row_scale), self._tensor(1.0 / self._col_scale))
+            Aop = Aop.scale(part(Aop, "m", self._tensor(self._row_scale)),
+                            self._tensor(1.0 / self._col_scale))
         self.A = Aop
+        # K_y as the loops see it: split as A's rows are.
+        self.Ky_loc = shard_cones(self.Ky, Aop)
         base = settings or SolverSettings()
         # Cone problems run the graph loop in exact-tolerance mode.
         self.settings = base.replace(use_exact_tol=True)
@@ -247,11 +269,12 @@ class ConeSolver:
         if self._init_state is None:
             proj = DirectProjector("inverse") if self.projector == "direct" else CglsProjector()
             with highest_precision():
-                eq = equilibrate(self.A, constrain_d=self.Ky.constrain_average,
+                eq = equilibrate(self.A, constrain_d=self.Ky_loc.constrain_average,
                                  constrain_e=self.Kx.constrain_average)
                 norm_A = norm2_est(eq.A)
                 factor = proj.init(eq.A, s=1.0)
-            self._set_init_state({"A": eq.A if eq.A.is_sparse else eq.A.dense(),
+            keep = eq.A.is_sparse or self.sharded
+            self._set_init_state({"A": eq.A if keep else eq.A.dense(),
                                   "d": eq.d, "e": eq.e, "norm_A": norm_A, "factor": factor})
         return self
 
@@ -290,13 +313,13 @@ class ConeSolver:
         forced on a CPU device, its plain version); see the module note."""
         if not self.use_hsde or self.strategy != "smw" or settings.use_fused is False:
             return False
-        eligible = (not self.A.is_sparse and self.projector == "direct"
+        eligible = (not self.A.is_sparse and not self.sharded and self.projector == "direct"
                     and fused_hsde_eligible(self.dtype, self.Ky, False, settings.use_anderson))
         if settings.use_fused:
             if not eligible:
                 raise ValueError(
                     "use_fused=True but the cone kernel does not support this problem "
-                    "(needs a dense A with the direct projector, float32/float64, no "
+                    "(needs a dense A, unsharded, with the direct projector, float32/float64, no "
                     "anderson, at most 16 contiguous SOC/exponential segments, no SDP)")
             return True
         return (eligible and self.device.type == "cuda"
@@ -319,6 +342,8 @@ class ConeSolver:
         if settings.rho != DEFAULT_RHO:
             self.rho = float(settings.rho)
         if P is not None:
+            if self.sharded:
+                raise NotImplementedError("QPs take no sharded A")
             P = self._check_P(P)
             # The embedding with P in Q does not have the QP optimum as a
             # fixed point, so QPs go through one of the QP routes.
@@ -384,7 +409,8 @@ class ConeSolver:
     def _solve_hsde(self, b_orig, c_orig, settings, u0, rays: bool = True):
         st = self._init_state
         A, d, e = st["A"], st["d"], st["e"]
-        m, n = self.m, self.n
+        m, n = local_shape(A)
+        b_orig = part(A, "m", b_orig)
         b_s, c_s = b_orig * d, c_orig * e
         # The cached Gram inverse serves SMW; without it (the CGLS projector)
         # hsde_solve factors I + AᵀA itself.
@@ -396,7 +422,7 @@ class ConeSolver:
                                    settings.rel_tol, settings.max_iter, u0=u0, At=st["At"])
         else:
             out = hsde_solve(
-                A, b_s, c_s, self.Ky, strategy=self.strategy, abs_tol=settings.abs_tol,
+                A, b_s, c_s, self.Ky_loc, strategy=self.strategy, abs_tol=settings.abs_tol,
                 rel_tol=settings.rel_tol, max_iter=settings.max_iter, smw_factor=fac,
                 use_anderson=settings.use_anderson, anderson_mem=settings.anderson_mem,
                 anderson_start=settings.anderson_start, u0=u0, polish=settings.polish)
@@ -414,8 +440,8 @@ class ConeSolver:
         else:
             x_off, y_off, nu_off = torch.zeros_like(x_s), b_orig, torch.zeros_like(y_s)
         x = torch.where(tau_ok, x_s * e, x_off)
-        y = torch.where(tau_ok, b_orig - s_orig, y_off)
-        nu = torch.where(tau_ok, y_s * d, nu_off)
+        y = whole(A, "m", torch.where(tau_ok, b_orig - s_orig, y_off))
+        nu = whole(A, "m", torch.where(tau_ok, y_s * d, nu_off))
         return {"x": x, "y": y, "mu": torch.zeros_like(x), "nu": nu,
                 "optval": torch.dot(c_orig, x), "final_iter": out["final_iter"],
                 "status": out["status"], "r_pri": out["r_pri"], "r_dua": out["r_dua"],
@@ -439,9 +465,9 @@ class ConeSolver:
         """The graph-form cone path (K_x non-empty) in exact-tolerance mode."""
         st = self._init_state
         A, d, e = st["A"], st["d"], st["e"]
-        m, n = self.m, self.n
-        Kx, Ky = self.Kx, self.Ky
-        b_s, c_s = b_orig * d, c_orig * e
+        m, n = local_shape(A)
+        Kx, Ky = self.Kx, self.Ky_loc
+        b_s, c_s = part(A, "m", b_orig) * d, c_orig * e
         # c to unit norm, the scale folded into optval.
         c_nrm = torch.linalg.vector_norm(c_s)
         c_scale = torch.where(c_nrm > 0, 1.0 / torch.clamp(c_nrm, min=1e-30),
@@ -459,8 +485,9 @@ class ConeSolver:
                         settings, z0, z0, self.rho)
         status = postsolve_verify(A, d, e, out["x12"], out["y12"], out["status"],
                                   settings.abs_tol, settings.rel_tol)
-        return {"x": out["x12"] * e, "y": out["y12"] / d, "mu": out["mu_scaled"] / e,
-                "nu": out["nu_scaled"] * d, "optval": out["optval"],
+        return {"x": out["x12"] * e, "y": whole(A, "m", out["y12"] / d),
+                "mu": out["mu_scaled"] / e, "nu": whole(A, "m", out["nu_scaled"] * d),
+                "optval": out["optval"],
                 "final_iter": out["final_iter"], "status": status,
                 "r_pri": out["nrm_r"], "r_dua": out["nrm_s"], "gap": out["gap"]}
 

@@ -49,6 +49,16 @@ beyond them (the XL caps), and beyond those, on inequality-only LPs, every
 
 This loop with ``strategy="smw"`` and no polish is the plain version of the
 CUDA cone kernel (``ops/fused_hsde.py``).
+
+On a sharded operator (``parallel/mesh.py``, ``parallel/sparse.py``) the
+state stays split as (x, y, τ), each rank holding its part of the split
+side; every dot and norm on that side sums through the operator's
+``reduce`` (the check's in two stacked calls, one before and one after τ is
+known), the cone projections of a row-sharded y go through
+``ShardedConeSet``, and the SMW and ``cg`` solves take the operator's
+products.  The polish, where it runs, runs whole on every rank on the
+gathered A and iterate, and each rank keeps its part of the point.  The
+``direct`` strategy takes no sharded A.
 """
 
 from __future__ import annotations
@@ -58,9 +68,11 @@ from typing import Optional
 import torch
 
 from pogs_tpu_torch.types import Status
-from pogs_tpu_torch.cones.sets import ConeSet
+from pogs_tpu_torch.cones.sets import ConeSet, shard_cones
 from pogs_tpu_torch.linalg.cgls import CHECK_EVERY, run_frozen
-from pogs_tpu_torch.linalg.matrix import matvecs
+from pogs_tpu_torch.linalg.matrix import (
+    is_sharded, local_shape, matvecs, part, side_sums, whole,
+)
 from pogs_tpu_torch.solver.anderson import anderson_init, anderson_step
 
 K_ALPHA_MIN = 1.0
@@ -99,10 +111,6 @@ def _nrm(v):
     return torch.linalg.vector_norm(v)
 
 
-def _sum2(v):
-    return torch.sum(v * v)
-
-
 def _dense(A):
     return A.dense() if hasattr(A, "dense") else A
 
@@ -123,41 +131,74 @@ def make_q_matvec(A, b, c, P=None):
     return q_matvec, qt_matvec
 
 
+def _dots(A, c, x, b, y):
+    """(c·x, b·y), each summed across the shards of its side."""
+    return side_sums(A, "n", [("dot", c, x)])[0], side_sums(A, "m", [("dot", b, y)])[0]
+
+
+def _rmv_dots(A, y, ys):
+    """(Aᵀ y, [u·v for (u, v) in ys]) for y-side pairs: on a row-sharded A
+    the dots' partial sums ride in the product's all_reduce."""
+    if getattr(A, "sharded_side", None) == "m":
+        aty, dots = A.rmv_and(y, torch.stack([torch.dot(u, v) for u, v in ys]))
+        return aty, list(dots)
+    return matvecs(A)[1](y), side_sums(A, "m", [("dot", u, v) for u, v in ys])
+
+
 def _q_apply_split(A, b, c, P=None):
     """Split-form Q and Qᵀ: (x, y, τ) → (x', y', τ'); A a tensor or an
     operator, P a dense (n, n) tensor or None."""
     amv, armv = matvecs(A)
 
     def q(x, y, tau):
-        top = armv(y) + c * tau
+        aty, (by,) = _rmv_dots(A, y, [(b, y)])
+        top = aty + c * tau
         if P is not None:
             top = top + torch.mv(P, x)
-        return (top, -amv(x) + b * tau, -torch.dot(c, x) - torch.dot(b, y))
+        cx, = side_sums(A, "n", [("dot", c, x)])
+        return (top, -amv(x) + b * tau, -cx - by)
 
-    def qt(x, y, tau):
-        top = -armv(y) - c * tau
+    def qt(x, y, tau, sq=False):
+        """Qᵀ(x, y, τ); with ``sq`` also ‖(x, y, τ)‖², its y part riding in
+        the product's all-reduce on a row-sharded A."""
+        aty, dots = _rmv_dots(A, y, [(b, y), (y, y)] if sq else [(b, y)])
+        top = -aty - c * tau
         if P is not None:
             top = top + torch.mv(P, x)
-        return (top, amv(x) - b * tau, torch.dot(c, x) + torch.dot(b, y))
+        cx, = side_sums(A, "n", [("dot", c, x)])
+        out = (top, amv(x) - b * tau, cx + dots[0])
+        if sq:
+            xx, = side_sums(A, "n", [("dot", x, x)])
+            out = out + (xx + dots[1] + tau * tau,)
+        return out
 
     return q, qt
 
 
 def smw_setup(A, b, c, P=None):
     """Factor M = [I+P, Aᵀ; −A, I] by elimination: K = I + P + AᵀA and its
-    inverse, then t = M⁻¹h and s_den = 1 + hᵀt for the rank-1 τ coupling."""
-    Ad = _dense(A)
-    n = Ad.shape[1]
-    eye = torch.eye(n, dtype=Ad.dtype, device=Ad.device)
-    K = eye + Ad.T @ Ad
+    inverse, then t = M⁻¹h and s_den = 1 + hᵀt for the rank-1 τ coupling.
+    On a sharded A the Gram is the reduced local one and t this rank's
+    parts."""
+    if is_sharded(A):
+        G = A.gram("n")
+        amv, armv = A.mv, A.rmv
+    else:
+        A = _dense(A)
+        G = A.T @ A
+        amv, armv = matvecs(A)
+    n = A.shape[1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    K = eye + G
     if P is not None:
         K = K + P
     L = torch.linalg.cholesky(K)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     Kinv = Linv.T @ Linv
-    t_x = torch.mv(Kinv, c - torch.mv(Ad.T, b))
-    t_y = b + torch.mv(Ad, t_x)
-    s_den = 1.0 + torch.dot(c, t_x) + torch.dot(b, t_y)
+    t_x = part(A, "n", torch.mv(Kinv, whole(A, "n", c - armv(b))))
+    t_y = b + amv(t_x)
+    cx, by = _dots(A, c, t_x, b, t_y)
+    s_den = 1.0 + cx + by
     return {"Kinv": Kinv, "t_x": t_x, "t_y": t_y, "s_den": s_den}
 
 
@@ -166,9 +207,10 @@ def _smw_solve_split(factor, A, b, c, ux, uy, ut):
     carry an ``apply`` callable for (I + AᵀA)⁻¹."""
     amv, armv = matvecs(A)
     apply_kinv = factor.get("apply") or (lambda v: torch.mv(factor["Kinv"], v))
-    p_x = apply_kinv(ux - armv(uy))
+    p_x = part(A, "n", apply_kinv(whole(A, "n", ux - armv(uy))))
     p_y = uy + amv(p_x)
-    h_dot_p = torch.dot(c, p_x) + torch.dot(b, p_y)
+    cx, by = _dots(A, c, p_x, b, p_y)
+    h_dot_p = cx + by
     u_tau = (ut + h_dot_p) / factor["s_den"]
     return p_x - factor["t_x"] * u_tau, p_y - factor["t_y"] * u_tau, u_tau
 
@@ -200,7 +242,7 @@ def dense_q(A, b, c, P=None):
 def jacobi_inv_diag_split(A, b, c, P=None):
     """Jacobi preconditioner diag((I+Q)ᵀ(I+Q))⁻¹ as split (x, y, τ) parts,
     from A's squared products (an operator) or its squares (a tensor)."""
-    m, n = A.shape
+    m, n = local_shape(A)
     if hasattr(A, "sq_rmv"):
         col_a = A.sq_rmv(torch.ones(m, dtype=A.dtype, device=A.device))
         row_a = A.sq_mv(torch.ones(n, dtype=A.dtype, device=A.device))
@@ -211,7 +253,8 @@ def jacobi_inv_diag_split(A, b, c, P=None):
     if P is not None:
         dx = dx + 2.0 * torch.diagonal(P) + torch.sum(P * P, dim=0)
     dy = 1.0 + row_a + b * b
-    dtau = 1.0 + torch.dot(c, c) + torch.dot(b, b)
+    cc, bb = _dots(A, c, c, b, b)
+    dtau = 1.0 + cc + bb
     return (1.0 / torch.clamp(dx, min=1e-8), 1.0 / torch.clamp(dy, min=1e-8),
             1.0 / torch.clamp(dtau, min=1e-8))
 
@@ -240,18 +283,34 @@ def _t_mul(a, b):
     return tuple(x * y for x, y in zip(a, b))
 
 
-def _t_vdot(a, b):
-    return sum(torch.dot(x, y) if x.dim() else x * y for x, y in zip(a, b))
+def _t_sums(terms, A=None):
+    """Totals over split (x, y, τ) tuples: each term ``("dot", a, b)`` or
+    ``("sum2", a)``; the x and y parts of all terms sum across the shards of
+    a sharded ``A`` in one ``reduce`` per side."""
+    def side(i):
+        return [("dot", t[1][i], t[2][i]) if t[0] == "dot" else ("sum2", t[1][i])
+                for t in terms]
+
+    xs = side_sums(A, "n", side(0))
+    ys = side_sums(A, "m", side(1))
+    return [xs[i] + ys[i] + (t[1][2] * t[2][2] if t[0] == "dot" else torch.sum(t[1][2] * t[1][2]))
+            for i, t in enumerate(terms)]
 
 
-def _t_norm(a):
-    return torch.sqrt(sum(torch.sum(x * x) for x in a))
+def _t_vdot(a, b, A=None):
+    return _t_sums([("dot", a, b)], A)[0]
 
 
-def cg_solve_normal_split(q, qt, inv_diag, u, x0, tol, max_iter: int):
+def _t_norm(a, A=None):
+    return torch.sqrt(_t_sums([("sum2", a)], A)[0])
+
+
+def cg_solve_normal_split(q, qt, inv_diag, u, x0, tol, max_iter: int, A=None):
     """PCG on (I+Q)ᵀ(I+Q) w = (I+Q)ᵀ u, every vector a split (x, y, τ)
-    tuple.  ``cg_solve_normal_split.iterations`` counts the iterations the
-    solves needed, ``.steps`` those they ran (``run_frozen``)."""
+    tuple; ``A``, a sharded operator, sums the split side's parts.  pᵀAp
+    is taken as ‖(I+Q)p‖², on a row-sharded A in the product's all-reduce.
+    ``cg_solve_normal_split.iterations`` counts the iterations the solves
+    needed, ``.steps`` those they ran (``run_frozen``)."""
     def normal(v):
         t = _t_add(v, q(*v))
         return _t_add(t, qt(*t))
@@ -259,22 +318,25 @@ def cg_solve_normal_split(q, qt, inv_diag, u, x0, tol, max_iter: int):
     rhs = _t_add(u, qt(*u))
     r = _t_sub(rhs, normal(x0))
     z = _t_mul(r, inv_diag)
-    rhs_norm = _t_norm(rhs)
+    rhs_norm = _t_norm(rhs, A)
     tiny = torch.full_like(rhs_norm, 1e-20)
 
     def body(st):
         p, rz = st["p"], st["rz"]
-        Ap = normal(p)
-        pAp = _t_vdot(p, Ap)
+        # pᵀ(I+Q)ᵀ(I+Q)p = ‖t‖², t = (I+Q)p: on a row-sharded A its partial
+        # rides in Qᵀt's all-reduce.
+        t = _t_add(p, q(*p))
+        *qt_t, pAp = qt(*t, sq=True)
+        Ap = _t_add(t, tuple(qt_t))
         alpha = rz / torch.where(torch.abs(pAp) <= 1e-20, tiny, pAp)
         x = _t_add(st["x"], _t_scale(alpha, p))
         r = _t_sub(st["r"], _t_scale(alpha, Ap))
         z = _t_mul(r, inv_diag)
-        rz_new = _t_vdot(r, z)
+        rz_new, r2 = _t_sums([("dot", r, z), ("sum2", r)], A)
         return {"x": x, "r": r, "p": _t_add(z, _t_scale(rz_new / rz, p)), "rz": rz_new,
-                "k": st["k"] + 1, "done": _t_norm(r) <= tol * rhs_norm}
+                "k": st["k"] + 1, "done": torch.sqrt(r2) <= tol * rhs_norm}
 
-    st = {"x": tuple(x0), "r": r, "p": z, "rz": _t_vdot(r, z),
+    st = {"x": tuple(x0), "r": r, "p": z, "rz": _t_vdot(r, z, A),
           "k": torch.zeros((), dtype=torch.int32, device=rhs_norm.device),
           "done": rhs_norm == 0}
     if max_iter > 0:
@@ -483,13 +545,19 @@ def hsde_solve(
     JAX function.  Unscaling happens in the caller.
     """
     m, n = A.shape
+    m_loc, n_loc = local_shape(A)
     dt, dev = A.dtype, A.device
     dim = n + m + 1
     amv, armv = matvecs(A)
+    sharded = is_sharded(A)
+    Ky_whole = getattr(Ky, "whole", Ky)
+    Ky = shard_cones(Ky, A)
     Ky_dual = Ky.dual()
     b = torch.as_tensor(b, dtype=dt, device=dev)
     c = torch.as_tensor(c, dtype=dt, device=dev)
     if P is not None:
+        if sharded and A.sharded_side == "n":
+            raise NotImplementedError("P with a column-sharded A")
         P = torch.as_tensor(P, dtype=dt, device=dev)
 
     def T(v):
@@ -501,6 +569,8 @@ def hsde_solve(
         def lin_solve(ux, uy, ut, fp_resid):
             return _smw_solve_split(factor, A, b, c, ux, uy, ut)
     elif strategy in ("direct", "inverse"):
+        if sharded:
+            raise ValueError(f"the {strategy!r} strategy takes no sharded A; use 'smw' or 'cg'")
         # Cholesky of G = MᵀM + δI, then two refinement steps against the
         # unregularized MᵀM.
         M = dense_q(A, b, c, P)
@@ -527,17 +597,17 @@ def hsde_solve(
             # residual stalls at that level.  One refinement pass squares the
             # accuracy (cond·tol²), which restores the contraction.
             u = (ux, uy, ut)
-            tol = torch.clamp(0.1 * fp_resid / torch.clamp(_t_norm(u), min=1.0), 1e-12, 1e-2)
-            w = cg_solve_normal_split(q_split, qt_split, inv_diag, u, u, tol, cg_max)
+            tol = torch.clamp(0.1 * fp_resid / torch.clamp(_t_norm(u, A), min=1.0), 1e-12, 1e-2)
+            w = cg_solve_normal_split(q_split, qt_split, inv_diag, u, u, tol, cg_max, A)
             r = _t_sub(u, _t_add(w, q_split(*w)))
             zero = tuple(torch.zeros_like(x) for x in u)
-            dw = cg_solve_normal_split(q_split, qt_split, inv_diag, r, zero, tol, cg_max)
+            dw = cg_solve_normal_split(q_split, qt_split, inv_diag, r, zero, tol, cg_max, A)
             return _t_add(w, dw)
     else:
         raise ValueError(f"unknown HSDE strategy {strategy!r}")
 
-    b_norm = _nrm(b)
-    c_norm = _nrm(c)
+    b_norm, = side_sums(A, "m", [("norm", b)])
+    c_norm, = side_sums(A, "n", [("norm", c)])
     sqm = torch.sqrt(T(m))
     sqn = torch.sqrt(T(n))
     abs_t = T(abs_tol)
@@ -548,35 +618,59 @@ def hsde_solve(
     eps_d = T(1e-12)
 
     plan = None if P is not None else polish_plan(
-        Ky, m, n, polish, sparse=bool(getattr(A, "is_sparse", False)),
+        Ky_whole, m, n, polish, sparse=bool(getattr(A, "is_sparse", False)),
         itemsize=b.element_size())
-    burst = None if plan is None else _make_polish(
-        A, b, c, Ky, Ky_dual, plan, abs_t, rel_t, sqm, sqn, b_norm, c_norm)
+    burst = None
+    if plan is not None and sharded:
+        # The polish runs whole on every rank: A gathered once, the point
+        # gathered at each burst, each rank keeping its part of the result.
+        whole_burst = _make_polish(
+            A.gather_op(), whole(A, "m", b), whole(A, "n", c), Ky_whole, Ky_whole.dual(),
+            plan, abs_t, rel_t, sqm, sqn, b_norm, c_norm)
+
+        def burst(x_s, y_s, s_s):
+            ok, x_p, y_p, *rest = whole_burst(whole(A, "n", x_s), whole(A, "m", y_s),
+                                              whole(A, "m", s_s))
+            return (ok, part(A, "n", x_p), part(A, "m", y_p), *rest)
+    elif plan is not None:
+        burst = _make_polish(A, b, c, Ky, Ky_dual, plan, abs_t, rel_t, sqm, sqn,
+                             b_norm, c_norm)
 
     def check(st, it):
         """The residual / certificate test; both τ branches, selected."""
         wx, wy, wt = st["wx"], st["wy"], st["wt"]
-        w_norm = torch.sqrt(_sum2(wx) + _sum2(wy) + wt * wt)
+        # The sums of the ray w, one stacked partial sum per side.
+        ax_w = -amv(wx)
+        aty_w = armv(wy)
+        wx2, cwx, aty_norm = side_sums(A, "n", [("sum2", wx), ("dot", c, wx),
+                                                ("norm", aty_w)])
+        wy2, bwy, ax_dist, y_cone = side_sums(A, "m", [
+            ("sum2", wy), ("dot", b, wy), ("norm", ax_w - Ky.project(ax_w)),
+            ("norm", wy - Ky_dual.project(wy))])
+        w_norm = torch.sqrt(wx2 + wy2 + wt * wt)
         tau_ok = wt > torch.clamp(K_TAU_REL * w_norm, min=K_TAU_TOL)
         tau = torch.where(tau_ok, wt, one)
 
         # τ > 0: the primal, dual and gap test on (x, y) = w / τ.
         x_s, y_s = wx / tau, wy / tau
         s_s = b - amv(x_s)
-        r_pri = _nrm(s_s - Ky.project(s_s))
-        s_norm = _nrm(s_s)
-        r_dua_cone = _nrm(y_s - Ky_dual.project(y_s))
         aty = armv(y_s)
-        c_dot_x = torch.dot(c, x_s)
+        px = None
         if P is not None:
             px = torch.mv(P, x_s)
             aty = aty + px
-            c_dot_x = c_dot_x + torch.dot(x_s, px)
-        r_dua = _nrm(aty + c)
+        x_terms = [("dot", c, x_s), ("norm", aty + c), ("norm", aty)]
+        if P is not None:
+            x_terms.append(("dot", x_s, px))
+        c_dot_x, r_dua, aty_nrm, *xp = side_sums(A, "n", x_terms)
+        if P is not None:
+            c_dot_x = c_dot_x + xp[0]
+        r_pri, s_norm, r_dua_cone, y_nrm, b_dot_y = side_sums(A, "m", [
+            ("norm", s_s - Ky.project(s_s)), ("norm", s_s),
+            ("norm", y_s - Ky_dual.project(y_s)), ("norm", y_s), ("dot", b, y_s)])
         eps_pri = sqm * abs_t + rel_t * torch.maximum(b_norm, s_norm)
-        eps_dua = sqn * abs_t + rel_t * torch.maximum(_nrm(aty), c_norm)
-        eps_cone = sqm * abs_t + rel_t * torch.clamp(_nrm(y_s), min=1.0)
-        b_dot_y = torch.dot(b, y_s)
+        eps_dua = sqn * abs_t + rel_t * torch.maximum(aty_nrm, c_norm)
+        eps_cone = sqm * abs_t + rel_t * torch.clamp(y_nrm, min=1.0)
         gap = torch.abs(c_dot_x + b_dot_y)
         # Scale-invariant gap test (the JAX package's deviation from the
         # reference): relative to max(1, gap, |c'x|, |b'y|).
@@ -601,15 +695,12 @@ def hsde_solve(
                 g_o = torch.where(ok_p, g_p, g_o)
                 converged = converged | ok_p
 
-        # τ ≈ 0: the certificates of the ray w.
-        kappa = -torch.dot(c, wx) - torch.dot(b, wy)
+        # τ ≈ 0: the certificates of the ray w.  Unboundedness needs −A x̂ in
+        # the recession cone of K_y (ax_dist).
+        kappa = -cwx - bwy
         firm = (kappa > K_KAPPA_TOL) & (st["fp_resid"] <= fp_tol)
-        # Unboundedness needs −A x̂ in the recession cone of K_y.
-        ax_dist = Ky.distance(-amv(wx))
-        aty_norm = _nrm(armv(wy))
-        y_cone = _nrm(wy - Ky_dual.project(wy))
-        b_neg = -torch.dot(b, wy)
-        c_neg = -torch.dot(c, wx)
+        b_neg = -bwy
+        c_neg = -cwx
         infeas_sup = firm & (b_neg > cert_tol) & (aty_norm <= cert_tol * b_neg) \
             & (y_cone <= cert_tol * b_neg)
         unbdd_sup = firm & (c_neg > cert_tol) & (ax_dist <= cert_tol * c_neg)
@@ -619,7 +710,7 @@ def hsde_solve(
         # Dominance: each Farkas product over the joint ray norm and its
         # own data norm; the competing one must be K_CERT_CROSS x weaker,
         # and if both hold the dominant one wins.
-        joint = torch.sqrt(_sum2(wx) + _sum2(wy)) + eps_d
+        joint = torch.sqrt(wx2 + wy2) + eps_d
         beta = b_neg / (joint * torch.maximum(b_norm, eps_d))
         gamma = c_neg / (joint * torch.maximum(c_norm, eps_d))
         both = infeas_sup & unbdd_sup
@@ -661,19 +752,21 @@ def hsde_solve(
         ux = st["ux"] + st["alpha"] * (vx - wx)
         uy = st["uy"] + st["alpha"] * (zy - wy)
         ut = st["ut"] + st["alpha"] * (zt - wt)
-        fp = torch.sqrt(_sum2(vx - wx) + _sum2(zy - wy) + (zt - wt) ** 2)
+        fx, = side_sums(A, "n", [("sum2", vx - wx)])
+        fy, = side_sums(A, "m", [("sum2", zy - wy)])
+        fp = torch.sqrt(fx + fy + (zt - wt) ** 2)
         new = dict(st)
         if use_anderson:
             # Type-II Anderson on the DR map, its history reset whenever the
             # fixed-point residual grows.
             u_acc, aa = anderson_step(st["aa"], torch.cat([st["ux"], st["uy"], st["ut"][None]]),
-                                      torch.cat([ux, uy, ut[None]]))
+                                      torch.cat([ux, uy, ut[None]]), split=aa_split)
             grew = fp > st["fp_resid"]
             aa = aa._replace(k=torch.where(grew, torch.zeros_like(aa.k), aa.k))
             take = (st["k"] >= anderson_start) & ~grew
-            ux = torch.where(take, u_acc[:n], ux)
-            uy = torch.where(take, u_acc[n:n + m], uy)
-            ut = torch.where(take, u_acc[n + m], ut)
+            ux = torch.where(take, u_acc[:n_loc], ux)
+            uy = torch.where(take, u_acc[n_loc:n_loc + m_loc], uy)
+            ut = torch.where(take, u_acc[n_loc + m_loc], ut)
             new["aa"] = aa
         new.update(ux=ux, uy=uy, ut=ut, wx=wx, wy=wy, wt=wt, fp_resid=fp)
         if it % K_CHECK_EVERY == 0 or it >= max_iter - 1:
@@ -683,18 +776,25 @@ def hsde_solve(
         new["done"] = done
         return new
 
+    aa_split = None
+    if use_anderson and sharded:
+        on_m = torch.zeros(n_loc + m_loc + 1, dtype=torch.bool, device=dev)
+        on_m[n_loc:n_loc + m_loc] = True
+        on_n = torch.zeros_like(on_m)
+        on_n[:n_loc] = True
+        aa_split = (on_m if A.sharded_side == "m" else on_n, A.reduce)
     if u0 is None:
-        ux0 = torch.zeros(n, dtype=dt, device=dev)
-        uy0 = torch.zeros(m, dtype=dt, device=dev)
+        ux0 = torch.zeros(n_loc, dtype=dt, device=dev)
+        uy0 = torch.zeros(m_loc, dtype=dt, device=dev)
         ut0 = T(1.0)
     else:
         u0 = T(u0)
-        ux0, uy0, ut0 = u0[:n], u0[n:n + m], u0[n + m]
+        ux0, uy0, ut0 = u0[:n_loc], u0[n_loc:n_loc + m_loc], u0[n_loc + m_loc]
     zero = T(0.0)
     st = {
         "ux": ux0, "uy": uy0, "ut": ut0,
-        "wx": torch.zeros(n, dtype=dt, device=dev),
-        "wy": torch.zeros(m, dtype=dt, device=dev), "wt": zero,
+        "wx": torch.zeros(n_loc, dtype=dt, device=dev),
+        "wy": torch.zeros(m_loc, dtype=dt, device=dev), "wt": zero,
         "alpha": T(K_ALPHA_MIN), "fp_resid": T(1.0),
         "prev_resid": T(torch.finfo(dt).max),
         "k": torch.zeros((), dtype=torch.int32, device=dev),
@@ -704,7 +804,7 @@ def hsde_solve(
         "cert_pending": torch.zeros((), dtype=torch.int32, device=dev),
     }
     if use_anderson:
-        st["aa"] = anderson_init(dim, anderson_mem, dt, dev)
+        st["aa"] = anderson_init(n_loc + m_loc + 1, anderson_mem, dt, dev)
 
     for it in range(max_iter):
         new = body(st, it)

@@ -164,10 +164,18 @@ def test_epigraph_extension_is_the_single_routes(form):
 
 
 def test_batched_cone_refuses_a_mesh():
+    """A mesh without the batch axis is refused: the cone batches split
+    their lanes over ``batch_axis`` (tests/test_torch_sharding.py runs them
+    over a mesh of gloo ranks)."""
+    from pogs_tpu_torch.parallel.mesh import Mesh
+
+    rows_only = Mesh.__new__(Mesh)
+    rows_only.shape, rows_only.axis_names = {"rows": 2}, ("rows",)
+    rows_only.device = torch.device("cpu")
     A, b, c, dims = _problem("lp")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        P.batched_cone_solve(A, b, c, P.dims_to_cones(dims), mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(ValueError, match="'batch'"):
+        P.batched_cone_solve(A, b, c, P.dims_to_cones(dims), mesh=rows_only, device="cpu")
+    with pytest.raises(ValueError, match="'batch'"):
         P.batched_qp_solve(np.eye(2), np.eye(2), np.ones((1, 2)), np.zeros(2),
-                           [P.ConeConstraint(P.Cone.NON_NEG, range(2))], batch_axis="batch",
+                           [P.ConeConstraint(P.Cone.NON_NEG, range(2))], mesh=rows_only,
                            device="cpu")

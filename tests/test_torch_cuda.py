@@ -809,3 +809,44 @@ def test_scs_data_solve_through_k3(cuda):
     assert res["info"]["status_val"] == 1 and direct["status"] == 0
     assert res["info"]["iter"] == direct["iterations"]
     np.testing.assert_allclose(res["x"], direct["x"], rtol=0, atol=1e-12)
+
+
+# ---- slice 8: two gloo ranks sharing the card ------------------------------------
+
+@pytest.fixture(scope="module")
+def card_group():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch_mesh_cases as C
+
+    return C.run_group(2, ["card_row", "card_batches"], device="cuda:0")
+
+
+def _case(group, name):
+    r = group[name]
+    assert r["ok"], r.get("error")
+    return r["value"]
+
+
+def test_row_sharded_solve_on_the_card(card_group):
+    """Phase 28 (a) at 200x100: two ranks on cuda:0, the row plan against
+    the single-device eager loop; no K1 launch."""
+    v = _case(card_group, "card_row")
+    for dt, atol in (("float32", 5e-4), ("float64", 1e-8)):
+        r = v[dt]
+        assert r["device"].startswith("cuda")
+        assert r["status"] == (0, 0) and r["iters"][0] == r["iters"][1], r
+        np.testing.assert_allclose(r["x"][1], r["x"][0], atol=atol, rtol=0)
+        assert r["launches"] == 0
+
+
+def test_batches_over_a_mesh_on_the_card(card_group):
+    """Phase 28 (e) at 200x100 K = 16 and the 16-row SOC ball K = 4: one K2
+    launch per rank, one K3 launch per lane of each rank, every lane equal
+    to the single-device run's."""
+    v = _case(card_group, "card_batches")
+    assert v["k2"] == [1.0, 1.0] and v["k3"] == [2.0, 2.0]
+    for part in ("sweep", "cone"):
+        assert np.all(v[part]["status"][0] == 0)
+        for key, (ref, sh) in v[part].items():
+            np.testing.assert_array_equal(sh, ref, err_msg=f"{part} {key}")
