@@ -28,21 +28,28 @@ Phases, each printing one JSON line of its own:
      TB/s;
   6. a warm λ-path of 3 solves on one solver, K1 against the eager loop;
   7. both kernels of the batched solve (K2: the streaming cooperative kernel
-     and the L2-resident one) against their plain version on the card, lane
-     for lane, and their times in turns: bench.py's λ-sweep (500x300 f32,
-     K = 128), wide 300x500 (K = 16), multi-RHS with a λ ladder (K = 8),
-     max_iter=5, the sweep in float64; chunk independence of the resident
-     kernel (8 lanes of the K = 128 run against an 8-lane run with 8 lanes
-     per block) and K independence of the streaming one (the same 8 lanes
+     and the resident cluster kernel) against their plain version on the
+     card, lane for lane, and their times in turns: bench.py's λ-sweep
+     (500x300 f32, K = 128), wide 300x500 (K = 16), multi-RHS with a λ
+     ladder (K = 8), max_iter=5, the sweep in float64, each case line with
+     the resident kernel's plan (cluster size C, lanes per cluster Kc,
+     clusters, whether its slices sit in shared memory) and its µs per
+     iteration of the slowest lane; the bench sweep also at each Kc; the
+     float64 sweep also on 8-block clusters reading the slices from global
+     memory; K and chunk independence of the resident kernel bit for bit
+     (8 lanes of the K = 128 run against 8-lane runs at the rule's Kc and
+     at Kc = 8) and K independence of the streaming one (the same 8 lanes
      alone); then both kernels in turns on lasso sweeps below L2 from
-     120x80 to 2000x1200 at K = 8 to 128, beside route_for's pick;
+     120x80 to 2000x1200 at K = 8 to 128 and wide 300x500 at K = 16, beside
+     route_for's pick;
   8. the batched path: pogs_tpu_torch.parallel.batched_graph_solve on the
      bench sweep (K = 128 f32, rel_tol 5e-4; the resident kernel) and at
      5000x2500 (K = 32; the streaming kernel), one K2 launch per call through
      the kernel route_for picks, every lane SUCCESS and within the lasso KKT
      check; K2 against K sequential cold K1 solves from the same init, with
      its bound and time per iteration; at 5000x2500 the streaming kernel
-     against its plain version, and the resident kernel's time;
+     against its plain version, and the resident kernel's time (null: its
+     vector staging has no plan in shared memory at that width);
   9. the warm λ-path: solve_lasso_path(warm=True) over 12 λ on the bench
      problem, 12 K1 launches, iterations within 2 of the eager loop's;
  10. the cone kernel (K3) against its plain version (the eager HSDE loop with
@@ -170,7 +177,8 @@ K3 (the densified routes); so do phases 17 to 21, which must launch K3,
 and phases 22 and 23, and 24 to 27, which must launch K1 and K3; 24 runs
 after 25 to 27, since a profiler session slows the eager launches that
 follow it in the same process.  Phase 28 counts its launches in its ranks
-(K2 and K3).  ``--mesh-only`` runs phases 1, 2 and 28.  Then the
+(K2 and K3).  ``--mesh-only`` runs phases 1, 2 and 28, ``--batch-only``
+phases 1, 2, 7 and 8.  Then the
 kernels' summary line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
 
@@ -308,7 +316,8 @@ def phase_build():
             "library": str(_build.library_path(name)),
             "ptxas": ("cached: built by an earlier run, no compiler output" if cached[name]
                       else [ln.strip() for ln in log.splitlines()
-                            if "registers" in ln or "spill" in ln]),
+                            if "registers" in ln or "spill" in ln
+                            or "Compiling entry" in ln]),
         }
     emit({"phase": "build", "seconds": secs, "libraries": libs,
           "native": {"library": os.path.relpath(str(native_build["library"]), ROOT),
@@ -763,6 +772,43 @@ def k_independence(torch, fab, args, out_k):
             "ok": bool(ok)}
 
 
+def resident_plan(torch, fab, m, n, dt, K):
+    """The resident kernel's plan for an (m, n) sweep of K lanes: cluster
+    size, whether its slices sit in shared memory, clusters the card holds,
+    lanes per cluster and clusters launched."""
+    itemsize = 8 if dt == torch.float64 else 4
+    plan = fab.cluster_plan(m, n, itemsize)
+    if plan is None:
+        return {"C": None, "in_smem": None, "slots": None, "kc": None, "clusters": None}
+    slots = fab.cluster_slots(fab._lib(), torch.device("cuda", torch.cuda.current_device()),
+                              itemsize == 8, m, n, plan)
+    kc = fab.chunk_for(K, slots)
+    return {"C": plan["C"], "in_smem": plan["in_smem"], "smem": plan["smem"], "slots": slots,
+            "kc": kc, "clusters": -(-K // kc)}
+
+
+def resident_independence(torch, fab, args, out_k):
+    """The resident kernel's lanes do not depend on K or on the lanes per
+    cluster, bit for bit: the first 8 lanes of out_k against an 8-lane run
+    at the rule's Kc and at Kc = 8 (one cluster)."""
+    args8 = args[:7] + (args[7][:8],) + args[8:]
+    rule = fab.chunk_for
+    runs = {}
+    with forced_route("resident"):
+        runs["rule"] = fab.fused_batched_lasso_sweep(*args8)
+        fab.chunk_for = lambda K, clusters: 8
+        try:
+            runs["kc8"] = fab.fused_batched_lasso_sweep(*args8)
+        finally:
+            fab.chunk_for = rule
+    torch.cuda.synchronize()
+    keys = ("x12", "y12", "optval", "final_iter", "status", "rho")
+    same = {label: all(torch.equal(out[key], out_k[key][:8]) for key in keys)
+            for label, out in runs.items()}
+    return {"lanes": 8, "K": [8, int(out_k["status"].shape[0])], "bit_equal": same,
+            "ok": all(same.values())}
+
+
 def phase_kernel_vs_plain_batch(torch, P):
     """Both K2 kernels against the plain version on each case, and their
     times in turns (resident, stream, stream, resident)."""
@@ -821,41 +867,36 @@ def phase_kernel_vs_plain_batch(torch, P):
         rec.update({"ms_in_turns": dict(zip(["resident", "stream", "stream_2", "resident_2"],
                                             turns)),
                     "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby})
+        plan = resident_plan(torch, fab, m, n, dt, K)
+        iters = int(outs["resident"]["final_iter"].max()) + 1
+        rec["resident"].update(plan, us_per_iter=rec["resident"]["ms"] * 1e3 / iters)
         if name == "sweep_500x300_K128_f32":
-            # The resident kernel's time at each lane count per block, as a
-            # record for the rule that picks it (chunk_for).
+            # The resident kernel's time at each lane count per cluster, as
+            # a record for the rule that picks it (chunk_for), per call and
+            # per iteration of its slowest lane.
             rule = fab.chunk_for
             per_kc = {}
             for kc in fab.LANE_CHUNKS:
-                fab.chunk_for = lambda K, slots, kc=kc: kc
+                fab.chunk_for = lambda K, clusters, kc=kc: kc
                 try:
                     per_kc[kc] = cuda_ms(torch, lambda: run("resident"), 3)
                 finally:
                     fab.chunk_for = rule
-            rec["resident"]["ms_by_lanes_per_block"] = per_kc
-            # Chunk independence (resident): the first 8 lanes against an
-            # 8-lane run with all 8 lanes in one block.
-            args8 = args[:7] + (args[7][:8],) + args[8:]
-            fab.chunk_for = lambda K, slots: 8
-            try:
-                with forced_route("resident"):
-                    out8 = fab.fused_batched_lasso_sweep(*args8)
-            finally:
-                fab.chunk_for = rule
-            torch.cuda.synchronize()
-            out_r = outs["resident"]
-            err8 = float((out8["x12"] - out_r["x12"][:8]).abs().max())
-            ind_ok = (torch.equal(out8["status"], out_r["status"][:8])
-                      and torch.equal(out8["final_iter"], out_r["final_iter"][:8])
-                      and err8 <= 1e-6 * max(1.0, float(out_r["x12"][:8].abs().max())))
-            used = rule(K, fab._slots(fab._lib(), args[0].device, False))
-            rec["resident"]["chunk_independence"] = {
-                "lanes": 8, "lanes_per_block": [used, 8], "max_abs_err": err8,
-                "ok": bool(ind_ok)}
+            rec["resident"]["ms_by_lanes_per_cluster"] = per_kc
+            rec["resident"]["us_per_iter_by_lanes_per_cluster"] = {
+                kc: t * 1e3 / iters for kc, t in per_kc.items()}
+            ind = resident_independence(torch, fab, args, outs["resident"])
+            rec["resident"]["k_and_chunk_independence"] = ind
             # K independence (stream).
             rec["stream"]["k_independence"] = k_independence(torch, fab, args, outs["stream"])
-            ok = ok and bool(ind_ok) and rec["stream"]["k_independence"]["ok"]
+            ok = ok and ind["ok"] and rec["stream"]["k_independence"]["ok"]
             summary = rec
+        print(f"phase 7 {name}: resident C={plan['C']} Kc={plan['kc']} "
+              f"clusters={plan['clusters']} slices in "
+              f"{'shared' if plan['in_smem'] else 'global'} memory, "
+              f"{rec['resident']['ms']:.3f} ms, {rec['resident']['us_per_iter']:.2f} us per "
+              f"iteration ({iters}); stream {rec['stream']['ms']:.3f} ms; "
+              f"bound {bms:.4f} ms", flush=True)
         rec["ok"] = ok
         emit(rec)
         if not ok:
@@ -872,6 +913,7 @@ def route_table(torch, P, fab):
     cells = [((m, n), f32, (8, 32, 64, 128)) for m, n in (
         (120, 80), (250, 150), (350, 210), (500, 300), (1000, 600), (2000, 1200))]
     cells.append(((500, 300), f64, (8, 32, 64)))
+    cells.append(((300, 500), f32, (16,)))
     rows = []
     for (m, n), dt, Ks in cells:
         A, b, lam = make_lasso(m, n)
@@ -889,11 +931,21 @@ def route_table(torch, P, fab):
                      for route in ("resident", "stream", "stream", "resident")]
             ms = {"resident": (turns[0] + turns[3]) / 2, "stream": (turns[1] + turns[2]) / 2}
             k = min(m, n)
+            plan = resident_plan(torch, fab, m, n, dt, K)
+            iters = int(run("resident")["final_iter"].max()) + 1
             rows.append({"shape": [m, n], "K": K, "dtype": str(dt).replace("torch.", ""),
                          "matrix_elems": 2 * m * n + k * k,
                          "iters_max": int(run("stream")["final_iter"].max()) + 1,
+                         "resident_plan": plan,
+                         "resident_us_per_iter": ms["resident"] * 1e3 / iters,
                          "ms": ms, "faster": min(ms, key=ms.get),
                          "route_for": fab.route_for(m, n, A.dtype.itemsize, K)})
+            r = rows[-1]
+            print(f"route table {m}x{n} K={K} {r['dtype']}: resident {ms['resident']:.3f} ms "
+                  f"(C={plan['C']} Kc={plan['kc']} "
+                  f"{'shared' if plan['in_smem'] else 'global'}), stream "
+                  f"{ms['stream']:.3f} ms; route_for picks {r['route_for']}, faster "
+                  f"{r['faster']}", flush=True)
     emit({"phase": "kernel_vs_plain_batch", "case": "route_table", "rows": rows,
           "route_for_picks_faster": sum(r["route_for"] == r["faster"] for r in rows),
           "cells": len(rows)})
@@ -922,10 +974,11 @@ def k1_sequential_ms(torch, P, args, lams, st, reps):
 
 
 def phase_batched_path(torch, P):
-    """batched_graph_solve through K2 at the bench size (the L2-resident
+    """batched_graph_solve through K2 at the bench size (the resident
     kernel) and at 5000x2500 (the streaming kernel), each against K
     sequential K1 solves; at 5000x2500 also the streaming kernel against the
-    plain version, and the resident kernel's time on the same inputs."""
+    plain version, and the resident kernel's time on the same inputs where
+    it has a plan."""
     from pogs_tpu_torch.ops import fused_admm_batch as fab
     from pogs_tpu_torch.parallel import batched_graph_solve
 
@@ -982,15 +1035,20 @@ def phase_batched_path(torch, P):
         }
         if label == "real_size":
             # The streaming kernel against its plain version on the same
-            # inputs, and the L2-resident kernel's time in the same call.
+            # inputs, and the resident kernel's time in the same call.
             out_p = fab.fused_batched_lasso_sweep_ref(*args)
             torch.cuda.synchronize()
             ok, stats = lane_check(out_k2, out_p)
             rec["vs_plain"] = {**stats, "ok": ok}
             rec["plain_ms"] = cuda_ms(torch, lambda: fab.fused_batched_lasso_sweep_ref(*args), 1)
-            with forced_route("resident"):
-                rec["resident_k2_ms"] = cuda_ms(
-                    torch, lambda: fab.fused_batched_lasso_sweep(*args), 1)
+            if fab.cluster_plan(m, n, 4) is None:
+                # The resident kernel's vector staging overflows shared
+                # memory at this width: it has no plan and would raise.
+                rec["resident_k2_ms"] = None
+            else:
+                with forced_route("resident"):
+                    rec["resident_k2_ms"] = cuda_ms(
+                        torch, lambda: fab.fused_batched_lasso_sweep(*args), 1)
             if not ok:
                 raise AssertionError(f"real size: the streaming kernel disagrees with its "
                                      f"plain version: {stats}")
@@ -3562,6 +3620,12 @@ def main() -> int:
         phase_mesh(torch, P)
         print(smi, flush=True)
         return 0
+    if "--batch-only" in sys.argv[1:]:
+        # Phases 7 and 8 alone (after the build), for work on K2.
+        phase_kernel_vs_plain_batch(torch, P)
+        phase_batched_path(torch, P)
+        print(smi, flush=True)
+        return 0
     summary = phase_kernel_vs_plain(torch, P)
     launches = phase_main_path(torch, P)
     phase_real_size(torch, P)
@@ -3622,7 +3686,7 @@ def main() -> int:
         raise AssertionError("the port imported jax or pogs_tpu")
     # No single PyTorch call computes an ADMM or HSDE solve: library_ms null.
     # K2's two kernels: the streaming one as the 5000x2500 sweep runs it, the
-    # L2-resident one as the bench sweep runs it.
+    # resident cluster kernel as the bench sweep runs it.
     real_b = batched["real_size"]
     emit({"kernels": [{
         "name": "fused_admm_loop", "route": "cuda",

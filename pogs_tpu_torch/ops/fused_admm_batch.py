@@ -5,12 +5,14 @@ Counterpart of ``pogs_tpu/ops/fused_admm_batch.py::fused_batched_lasso_sweep``.
 Lane k solves the problem with g.c replaced by ``c_batch[k]`` (a λ-sweep)
 and, optionally, f.b replaced by ``fb_batch[k]`` (multi-RHS).  Two
 hand-written kernels compute it, and :func:`route_for` picks one by the
-size of A, Aᵀ and Ginv and by K:
+first one's plan:
 
-  * ``csrc/fused_admm_batch.cu`` gives each thread block a chunk of Kc
-    lanes (:func:`chunk_for`) and runs the whole while-loop for them; it
-    takes small matrices, and sweeps of many lanes whose matrices fit the
-    L2;
+  * ``csrc/fused_admm_batch.cu`` runs each chunk of Kc lanes
+    (:func:`chunk_for`) on one thread block cluster that holds A's and
+    Ginv's row slices in its blocks' shared memory (:func:`cluster_plan`:
+    C blocks, C picked by m, n and the dtype, never by K) for the whole
+    while-loop; it takes every sweep whose slices sit in shared memory or,
+    read from L2, stay within ``GLOBAL_SLICE_BYTES`` a block;
   * ``csrc/fused_admm_sweep.cu`` runs one cooperative grid that streams
     each matrix once per iteration for 32 lanes at a time, its products
     split over every SM (:func:`sweep_plan`); it takes the rest.
@@ -47,7 +49,7 @@ from pogs_tpu_torch.solver.admm import (
 
 _DTYPES = (torch.float32, torch.float64)
 _SLOTS: dict = {}
-# Lanes per thread block the L2-resident kernel is built for.
+# Lanes per cluster the resident kernel is built for (Kc).
 LANE_CHUNKS = (1, 2, 4, 8)
 
 
@@ -233,54 +235,112 @@ def fused_batched_lasso_sweep_ref(A, Ginv, norm_A, h_f, f_params, h_g, g_params,
     }
 
 
-def chunk_for(K: int, slots: int) -> int:
-    """Lanes per thread block of the L2-resident kernel: the smallest of
-    ``LANE_CHUNKS`` whose blocks all fit the card at once (``slots`` = SMs ×
-    resident blocks per SM).
+def chunk_for(K: int, clusters: int) -> int:
+    """Lanes per cluster of the resident kernel: the smallest of
+    ``LANE_CHUNKS`` whose ⌈K / Kc⌉ clusters all fit the card at once
+    (``clusters``: the plan's clusters the device holds, by
+    ``cudaOccupancyMaxActiveClusters``); 8 when none does.
 
-    A block streams A, Aᵀ and Ginv once per iteration whatever its lane
-    count; below L2 that stream is cheap, so more blocks finish sooner, and
-    fewer lanes per block wait less for their slowest lane.  A lane's
-    results do not depend on the choice."""
+    A cluster holds A's and Ginv's slices once and applies each element to
+    all its lanes, so more clusters finish sooner only while they fit one
+    wave; and fewer lanes per cluster wait less for their slowest lane.  A
+    lane's results do not depend on the choice."""
     for kc in LANE_CHUNKS:
-        if -(-K // kc) <= slots:
+        if -(-K // kc) <= clusters:
             return kc
     return LANE_CHUNKS[-1]
 
 
-# The card's L2 cache (NVIDIA H100: 50 MB).
-L2_BYTES = 50 * 2**20
+# The resident kernel's decomposition (csrc/fused_admm_batch.cu, which
+# reports its plan through pogs_batch_cluster_plan; _checked_plan holds the
+# two together before a shape's first launch).
+CLUSTER_SIZES = (1, 2, 4, 8, 16)   # thread blocks per cluster; above 8 non-portable
+SMEM_LIMIT = 232_448               # dynamic shared memory a Hopper block may use
+PLAN_LANES = 8                     # lane stride of a staged vector: Kc <= 8
+_WARPS = 8                         # 256 threads a block
+_SCRATCH = _WARPS * 32 * PLAN_LANES
+_STATE = 5 + 2                     # per owned element: 5 state vectors, 2 exchanged
+_SMALL_ELEMS = 784                 # per-lane sums, scalars and warp sums
+_SMALL_INTS = 5 * PLAN_LANES
+
+
+def _al4(x: int) -> int:
+    return (x + 3) & ~3
+
+
+def cluster_layout(m: int, n: int, itemsize: int, C: int, in_smem: bool = True) -> dict:
+    """The resident kernel's layout on clusters of ``C`` blocks: block r
+    owns rows [r·HA, (r+1)·HA) of A, elements [r·HX, (r+1)·HX) of x, and
+    the matching HG rows of Ginv (x's when tall, y's when wide); with
+    ``in_smem`` its slices of A and Ginv sit in its shared memory (odd row
+    strides), else it reads them from global memory.  ``smem`` counts the
+    bytes of dynamic shared memory: the slices, three (n, 8) staged vectors
+    (a gathered input, two sets of Aᵀ partials), per owned element the 8
+    lanes' state (z, z̃, prox value, projection input, projected iterate),
+    two exchanged vectors and the prox parameters, a product's split
+    partials and the per-lane sums and scalars."""
+    k = min(m, n)
+    HA, HX = -(-m // C), -(-n // C)
+    HG = HX if m >= n else HA
+    slices = _al4(HA * (n | 1)) + _al4(HG * (k | 1)) if in_smem else 0
+    owned = HA + HX
+    elems = (slices + 3 * n * PLAN_LANES + _STATE * owned * PLAN_LANES + _SCRATCH
+             + _SMALL_ELEMS + owned * (5 + PLAN_LANES))
+    return {"C": C, "in_smem": bool(in_smem), "HA": HA, "HX": HX, "HG": HG,
+            "smem": elems * itemsize + 4 * (_SMALL_INTS + owned)}
+
+
+def cluster_plan(m: int, n: int, itemsize: int) -> Optional[dict]:
+    """The resident kernel's plan for an (m, n) A: the smallest cluster size
+    of ``CLUSTER_SIZES`` whose row slices of A and Ginv, with the vector
+    staging for 8 lanes, fit ``SMEM_LIMIT`` bytes of shared memory; where
+    none does, the largest, with its slices read from global memory; None
+    when even that staging does not fit.  It depends on m, n and the dtype
+    alone, never on K, so a lane's arithmetic does not depend on the lanes
+    that ride with it."""
+    for C in CLUSTER_SIZES:
+        plan = cluster_layout(m, n, itemsize, C, True)
+        if plan["smem"] <= SMEM_LIMIT:
+            return plan
+    plan = cluster_layout(m, n, itemsize, CLUSTER_SIZES[-1], False)
+    return plan if plan["smem"] <= SMEM_LIMIT else None
+
+
+# The rule as defined here, which _checked_plan holds the kernel's twin to
+# even where a test or chip_smoke.py forces another plan.
+_RULE = cluster_plan
+
+# On the global-memory plan a block reads its slices of A and Ginv from L2
+# every iteration; beyond this many bytes a block, the streaming kernel was
+# the faster (chip_smoke.py phase 7's route table, PERF.md §6: 242 KB at
+# 1000x600 f32 the resident kernel, 960 KB at 2000x1200 the streaming one).
+GLOBAL_SLICE_BYTES = 512 * 1024
 # The streaming kernel's decomposition (csrc/fused_admm_sweep.cu, which
 # reports its own through pogs_sweep_constants; sweep_grid checks that the
 # two agree before the first launch).
 SWEEP_LANES = 32            # lanes in flight: a larger K runs in groups of 32
 SWEEP_ROWS_PER_STAGE = 16   # matrix rows per ring stage
 SWEEP_STAGES = 4            # ring stages (cp.async, 16 bytes a copy)
-# Below L2, the elements of A, Aᵀ and Ginv that each group of 32 lanes
-# needs for the streaming kernel to win (chip_smoke.py phase 7's
-# route_table, PERF.md §6).
-STREAM_ELEMS_PER_GROUP = 375_000
 
 
 def route_for(m: int, n: int, itemsize: int, K: int) -> str:
     """Which of the two batched kernels runs a sweep of K lanes over an
     (m, n) A.
 
+    ``"resident"`` (``csrc/fused_admm_batch.cu``: a cluster of thread
+    blocks per chunk of lanes, no grid sync) when its plan holds A's and
+    Ginv's row slices in the cluster's shared memory, or reads them from
+    L2 with at most ``GLOBAL_SLICE_BYTES`` a block.  Otherwise
     ``"stream"`` (``csrc/fused_admm_sweep.cu``: one cooperative grid that
-    streams each matrix once per iteration, 32 lanes at a time and the
-    groups of 32 one after another) when A, Aᵀ and Ginv overflow the L2,
-    or when each lane group has ``STREAM_ELEMS_PER_GROUP`` of their elements
-    or more.  Otherwise ``"resident"`` (``csrc/fused_admm_batch.cu``, one
-    block per chunk of lanes, no grid sync).  Below L2 the resident
-    kernel's iteration costs one pass of a block over every element, and
-    the streaming kernel's about 45 to 110 µs per lane group, mostly grid
-    syncs."""
-    k = min(m, n)
-    elems = 2 * m * n + k * k
-    groups = -(-K // SWEEP_LANES)
-    if itemsize * elems > L2_BYTES or groups * STREAM_ELEMS_PER_GROUP <= elems:
+    streams each matrix once per iteration, 32 lanes at a time), and so for
+    every problem beyond the 50 MB L2, where a block of 16 would hold more
+    than 1.6 MB of slices.  chip_smoke.py phase 7's route table (PERF.md
+    §6) set it; K does not enter."""
+    plan = cluster_plan(m, n, itemsize)
+    if plan is None:
         return "stream"
-    return "resident"
+    slice_bytes = itemsize * (plan["HA"] * n + plan["HG"] * min(m, n))
+    return "resident" if plan["in_smem"] or slice_bytes <= GLOBAL_SLICE_BYTES else "stream"
 
 
 def sweep_tile_cols(itemsize: int) -> int:
@@ -320,14 +380,14 @@ def _lib():
 
     lib = load("fused_admm_batch")
     if not getattr(lib, "_pogs_typed", False):
-        vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-        lib.pogs_batch_sweep.argtypes = ([ci, ci] + [vp] * 14
-                                         + [ci, ci, ci, ci, cd, cd, ci, ci, ci, vp])
+        vp, ci, cd, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.c_longlong
+        lib.pogs_batch_sweep.argtypes = ([ci, ci] + [vp] * 12
+                                         + [ci] * 6 + [cd, cd, ci, ci, ci, vp])
         lib.pogs_batch_sweep.restype = ci
-        lib.pogs_batch_slots.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        lib.pogs_batch_slots.restype = ci
-        lib.pogs_batch_work_elems.argtypes = [ci, ci, ci]
-        lib.pogs_batch_work_elems.restype = ctypes.c_longlong
+        lib.pogs_batch_cluster_plan.argtypes = [ci] * 5 + [ctypes.POINTER(cll)]
+        lib.pogs_batch_cluster_plan.restype = None
+        lib.pogs_batch_max_clusters.argtypes = [ci] * 6 + [ctypes.POINTER(ci)]
+        lib.pogs_batch_max_clusters.restype = ci
         lib.pogs_batch_error_string.argtypes = [ci]
         lib.pogs_batch_error_string.restype = ctypes.c_char_p
         lib._pogs_error = lib.pogs_batch_error_string
@@ -363,14 +423,51 @@ def _check(lib, rc: int, what: str):
         raise RuntimeError(f"batched ADMM kernel: {what} failed: {msg} ({rc})")
 
 
-def _slots(lib, device: torch.device, is_double: bool) -> int:
-    key = ("resident", device.index, is_double)
+def _twin_plan(lib, m: int, n: int, itemsize: int, C: int, in_smem: bool) -> Optional[dict]:
+    """The kernel's own plan (C = 0: its rule), in cluster_layout's form."""
+    out = (ctypes.c_longlong * 6)()
+    lib.pogs_batch_cluster_plan(int(itemsize == 8), m, n, C, int(in_smem), out)
+    if out[0] == 0:
+        return None
+    return {"C": out[0], "in_smem": bool(out[1]), "HA": out[2], "HX": out[3], "HG": out[4],
+            "smem": out[5]}
+
+
+def _checked_plan(lib, m: int, n: int, itemsize: int) -> dict:
+    """``cluster_plan``'s plan for this shape, after checking (once per
+    shape and plan) that the library was built with the same rule and
+    computes the same layout for it."""
+    plan = cluster_plan(m, n, itemsize)
+    if plan is None:
+        raise RuntimeError(f"batched ADMM kernel: no cluster plan fits shared memory "
+                           f"for a {m}x{n} A ({itemsize}-byte elements)")
+    key = ("plan", m, n, itemsize, plan["C"], plan["in_smem"])
+    if key not in _SLOTS:
+        rule, twin = _RULE(m, n, itemsize), _twin_plan(lib, m, n, itemsize, 0, True)
+        if twin != rule:
+            raise RuntimeError(f"resident batch kernel: the library's plan {twin} is not "
+                               f"the wrapper's {rule}")
+        twin = _twin_plan(lib, m, n, itemsize, plan["C"], plan["in_smem"])
+        if twin != plan:
+            raise RuntimeError(f"resident batch kernel: the library lays out {twin}, "
+                               f"the wrapper {plan}")
+        _SLOTS[key] = True
+    return plan
+
+
+def cluster_slots(lib, device: torch.device, is_double: bool, m: int, n: int,
+                  plan: dict) -> int:
+    """Clusters of ``plan`` the card holds at once (a cluster of 16 must
+    fit one GPC); raises when none fits."""
+    key = ("resident", device.index, is_double, plan["C"], plan["in_smem"], plan["smem"])
     if key not in _SLOTS:
         s = ctypes.c_int(0)
-        _check(lib, lib.pogs_batch_slots(int(is_double), device.index, ctypes.byref(s)),
+        _check(lib, lib.pogs_batch_max_clusters(int(is_double), device.index, m, n, plan["C"],
+                                                int(plan["in_smem"]), ctypes.byref(s)),
                "occupancy query")
         if s.value < 1:
-            raise RuntimeError("batched ADMM kernel: a block does not fit on an SM")
+            raise RuntimeError(f"batched ADMM kernel: a cluster of {plan['C']} blocks with "
+                               f"{plan['smem']} bytes of shared memory does not fit the card")
         _SLOTS[key] = s.value
     return _SLOTS[key]
 
@@ -419,16 +516,17 @@ def _run_resident(lib, A, At, Ginv, hf, fp, hg, gp, cb, fbb, scal, out, settings
     K = cb.shape[0]
     dev, dt = A.device, A.dtype
     is_double = dt == torch.float64
-    kc = chunk_for(K, _slots(lib, dev, is_double))
-    work = torch.empty(lib.pogs_batch_work_elems(m, n, K), dtype=dt, device=dev)
+    plan = _checked_plan(lib, m, n, A.element_size())
+    kc = chunk_for(K, cluster_slots(lib, dev, is_double, m, n, plan))
     stream = torch.cuda.current_stream(dev).cuda_stream
     return lib.pogs_batch_sweep(
         int(is_double), dev.index,
-        A.data_ptr(), At.data_ptr(), Ginv.data_ptr(), hf.data_ptr(), fp.data_ptr(),
+        A.data_ptr(), Ginv.data_ptr(), hf.data_ptr(), fp.data_ptr(),
         hg.data_ptr(), gp.data_ptr(), cb.data_ptr(),
         fbb.data_ptr() if fbb is not None else None, scal.data_ptr(),
         out["x12"].data_ptr(), out["y12"].data_ptr(), out["stats"].data_ptr(),
-        work.data_ptr(), m, n, K, kc, float(settings.abs_tol), float(settings.rel_tol),
+        m, n, K, kc, plan["C"], int(plan["in_smem"]),
+        float(settings.abs_tol), float(settings.rel_tol),
         int(settings.max_iter), int(bool(settings.gap_stop)),
         int(bool(settings.adaptive_rho)), stream,
     )
@@ -473,12 +571,13 @@ def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, c_batch, settings,
     if tuple(Ginv.shape) != (k, k):
         raise ValueError(f"Ginv has shape {tuple(Ginv.shape)}, expected {(k, k)}")
     A = A.contiguous()
-    At = A.T.contiguous() if At is None else At.contiguous()
-    if tuple(At.shape) != (n, m):
-        raise ValueError(f"At has shape {tuple(At.shape)}, expected {(n, m)}")
+    if At is not None:
+        At = At.contiguous()
+        if tuple(At.shape) != (n, m):
+            raise ValueError(f"At has shape {tuple(At.shape)}, expected {(n, m)}")
     Ginv = Ginv.to(dtype=dt).contiguous()
     for t in (At, Ginv):
-        if t.device != dev or t.dtype != dt:
+        if t is not None and (t.device != dev or t.dtype != dt):
             raise ValueError("A, At and Ginv must share device and dtype")
     h_f, h_g = np.asarray(h_f, np.int32), np.asarray(h_g, np.int32)
     if h_f.shape != (m,) or h_g.shape != (n,):
@@ -502,7 +601,12 @@ def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, c_batch, settings,
                         torch.as_tensor(norm_A, dtype=dt, device=dev).reshape(())])
 
     route = route_for(m, n, A.element_size(), K)
-    lib, run = (_sweep_lib(), _run_stream) if route == "stream" else (_lib(), _run_resident)
+    if route == "stream":
+        # The resident kernel reads no Aᵀ; the streaming one does.
+        At = A.T.contiguous() if At is None else At
+        lib, run = _sweep_lib(), _run_stream
+    else:
+        lib, run = _lib(), _run_resident
     out = {"x12": torch.empty((K, n), dtype=dt, device=dev),
            "y12": torch.empty((K, m), dtype=dt, device=dev),
            "stats": torch.empty((K, 4), dtype=dt, device=dev)}
@@ -531,7 +635,8 @@ def fused_batched_lasso_sweep(A, Ginv, norm_A, h_f, f_params, h_g, g_params,
     :func:`pogs_tpu_torch.ops.fused_admm.fused_admm_loop`: the equilibrated
     dense ``A``, ``Ginv`` = (Gram + I)⁻¹, ``f_params`` / ``g_params`` the
     scaled (a, b, c, d, e) tuples (g's c is replaced per lane); ``At``
-    optionally passes a contiguous Aᵀ kept by the caller.  Returns x12
+    optionally passes a contiguous Aᵀ kept by the caller (only the
+    streaming kernel reads one).  Returns x12
     (K, n), y12 (K, m), and optval, final_iter, status and rho, each (K,).
     A CUDA ``A`` runs the kernel; a CPU ``A`` runs
     :func:`fused_batched_lasso_sweep_ref`.

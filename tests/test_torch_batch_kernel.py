@@ -196,13 +196,69 @@ def test_batch_wrapper_checks_and_raises():
 
 
 def test_chunk_rule():
-    """The smallest lane count per block whose blocks fit the card at once."""
-    assert pb.chunk_for(128, 132) == 1
-    assert pb.chunk_for(132, 132) == 1
-    assert pb.chunk_for(133, 132) == 2
-    assert pb.chunk_for(500, 132) == 4
-    assert pb.chunk_for(10_000, 132) == 8
+    """Lanes per cluster: the smallest of 1, 2, 4 and 8 whose clusters all
+    fit the card at once (the card's count of the plan's clusters), else 8."""
+    assert pb.chunk_for(128, 16) == 8       # the bench sweep on clusters of 8
+    assert pb.chunk_for(64, 16) == 4        # a rank's half of it over a (2, 1) mesh
+    assert pb.chunk_for(16, 16) == 1
+    assert pb.chunk_for(17, 16) == 2
+    assert pb.chunk_for(33, 16) == 4
+    assert pb.chunk_for(128, 15) == 8       # no lane count fits one wave
+    assert pb.chunk_for(128, 8) == 8        # clusters of 16: at most 8 on the card
+    assert pb.chunk_for(500, 132) == 4      # clusters of 1
     assert pb.chunk_for(1, 1) == 1
+
+
+# (m, n): (plan in f32, plan in f64) as (C, slices in shared memory), or
+# None where even the global-memory plan's staging overflows.
+_PLANS = {
+    (120, 80): ((1, True), (2, True)),
+    (500, 300): ((8, True), (16, True)),
+    (300, 500): ((8, True), (16, False)),
+    (1000, 600): ((16, False), (16, False)),
+    (2000, 1200): ((16, False), None),
+}
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+@pytest.mark.parametrize("shape", list(_PLANS), ids=[f"{m}x{n}" for m, n in _PLANS])
+def test_cluster_plan(shape, dtype):
+    """The resident kernel's plan: C of 1 to 16 blocks whose owned rows of
+    A (HA), elements of x (HX) and rows of Ginv (HG) cover each exactly
+    once, within 232,448 bytes of shared memory; the smallest C that holds
+    the slices, else 16 reading them from global memory.  The bench sweep
+    (500x300, f32 and f64) and the wide 300x500 f32 case are held whole in
+    shared memory.  The plan takes no K."""
+    import inspect
+
+    assert list(inspect.signature(pb.cluster_plan).parameters) == ["m", "n", "itemsize"]
+    m, n = shape
+    k = min(m, n)
+    itemsize = np.dtype(_NP[dtype]).itemsize
+    want = _PLANS[shape][dtype == "f64"]
+    plan = pb.cluster_plan(m, n, itemsize)
+    if want is None:
+        assert plan is None
+        assert pb.cluster_layout(m, n, itemsize, 16, False)["smem"] > pb.SMEM_LIMIT
+        assert pb.route_for(m, n, itemsize, 8) == "stream"
+        return
+    C, in_smem = want
+    assert (plan["C"], plan["in_smem"]) == want
+    assert C in pb.CLUSTER_SIZES and plan["smem"] <= pb.SMEM_LIMIT == 232_448
+    HA, HX, HG = plan["HA"], plan["HX"], plan["HG"]
+    assert (C - 1) * HA < m <= C * HA and (C - 1) * HX < n <= C * HX
+    assert HG == (HX if m >= n else HA) and (C - 1) * HG < k <= C * HG
+    if in_smem:
+        # The slices themselves fit, and no smaller cluster holds them.
+        assert itemsize * (HA * n + HG * k) < plan["smem"]
+        for smaller in pb.CLUSTER_SIZES[:pb.CLUSTER_SIZES.index(C)]:
+            assert pb.cluster_layout(m, n, itemsize, smaller)["smem"] > pb.SMEM_LIMIT
+    else:
+        assert pb.cluster_layout(m, n, itemsize, 16, True)["smem"] > pb.SMEM_LIMIT
+    if shape in ((500, 300), (300, 500)) and dtype == "f32" or shape == (500, 300):
+        assert in_smem
+    # The same plan and route whatever K rides on it.
+    assert len({pb.route_for(m, n, itemsize, K) for K in (1, 8, 128, 10_000)}) == 1
 
 
 @pytest.mark.parametrize("dtype", ["f32", "f64"])
@@ -234,49 +290,90 @@ def test_sweep_plan(shape, dtype):
         assert plan == (400, 432, 208)
 
 
-# chip_smoke.py phase 7 on NVIDIA H100 80GB HBM3, 700 W: lasso sweeps in
-# f32 below L2, ms per call of each kernel, timed in turns.
+# chip_smoke.py phase 7's route table on NVIDIA H100 80GB HBM3, 700.00 W
+# (the resident kernel on thread block clusters): lasso sweeps below L2, ms
+# per call of each kernel, timed in turns.
 _ROUTE_TIMES = [
-    # (m, n, K, resident ms, streaming ms)
-    (120, 80, 8, 0.73, 1.91), (120, 80, 32, 0.82, 2.28), (120, 80, 64, 0.72, 3.98),
-    (250, 150, 8, 2.06, 2.69), (250, 150, 32, 2.02, 3.30), (250, 150, 64, 2.02, 6.03),
-    (350, 210, 32, 3.10, 3.99), (350, 210, 64, 3.09, 7.34),
-    (500, 300, 8, 5.94, 3.21), (500, 300, 32, 5.92, 4.43), (500, 300, 64, 6.04, 8.54),
-    (500, 300, 128, 6.80, 16.40), (300, 500, 16, 19.48, 9.82),
-    (1000, 600, 8, 22.64, 5.15), (1000, 600, 32, 22.61, 7.70), (1000, 600, 64, 22.72, 14.02),
-    (2000, 1200, 8, 129.03, 9.07), (2000, 1200, 32, 166.62, 13.29),
-    (2000, 1200, 64, 180.44, 23.73),
+    # (m, n, itemsize, K, resident ms, streaming ms)
+    (120, 80, 4, 8, 0.853, 2.028),
+    (120, 80, 4, 32, 0.824, 2.659),
+    (120, 80, 4, 64, 0.835, 3.896),
+    (120, 80, 4, 128, 0.755, 7.361),
+    (250, 150, 4, 8, 1.234, 2.851),
+    (250, 150, 4, 32, 1.172, 3.884),
+    (250, 150, 4, 64, 1.225, 6.255),
+    (250, 150, 4, 128, 1.358, 11.859),
+    (350, 210, 4, 8, 1.272, 3.094),
+    (350, 210, 4, 32, 1.427, 4.104),
+    (350, 210, 4, 64, 1.504, 7.454),
+    (350, 210, 4, 128, 1.997, 14.887),
+    (500, 300, 4, 8, 1.572, 3.417),
+    (500, 300, 4, 32, 1.802, 4.706),
+    (500, 300, 4, 64, 2.318, 8.893),
+    (500, 300, 4, 128, 3.863, 17.327),
+    (1000, 600, 4, 8, 4.987, 5.18),
+    (1000, 600, 4, 32, 5.511, 7.313),
+    (1000, 600, 4, 64, 9.786, 13.849),
+    (1000, 600, 4, 128, 14.679, 26.426),
+    (2000, 1200, 4, 8, 18.402, 8.558),
+    (2000, 1200, 4, 32, 20.778, 13.171),
+    (2000, 1200, 4, 64, 36.141, 24.129),
+    (2000, 1200, 4, 128, 55.467, 46.378),
+    (500, 300, 8, 8, 1.952, 3.505),
+    (500, 300, 8, 32, 2.887, 4.579),
+    (500, 300, 8, 64, 4.898, 8.587),
+    (300, 500, 4, 16, 2.236, 4.563),
 ]
+# Cells whose two times lie within 3% of each other, where either pick is
+# right: none in this table (the closest, 1000x600 f32 at K = 8, 3.9%).
+_ROUTE_TIES: set = set()
 
 
-@pytest.mark.parametrize("m,n,K,resident_ms,stream_ms", _ROUTE_TIMES)
-def test_route_rule(m, n, K, resident_ms, stream_ms):
-    """Below L2 the rule picks the kernel that was faster on the card for
-    that size and K (the one tie, 350x210 at K = 8, 3.02 against 2.97 ms,
-    is left out)."""
+@pytest.mark.parametrize("m,n,itemsize,K,resident_ms,stream_ms", _ROUTE_TIMES)
+def test_route_rule(m, n, itemsize, K, resident_ms, stream_ms):
+    """The rule picks the kernel that was faster on the card for that size,
+    dtype and K (a tie within 3%, named in _ROUTE_TIES, is held to
+    neither)."""
     faster = "resident" if resident_ms < stream_ms else "stream"
-    assert pb.route_for(m, n, 4, K) == faster
+    if (m, n, itemsize, K) in _ROUTE_TIES:
+        assert abs(resident_ms - stream_ms) <= 0.03 * min(resident_ms, stream_ms)
+    else:
+        assert pb.route_for(m, n, itemsize, K) == faster
 
 
 def test_route_rule_bounds():
-    """The streaming kernel whenever A, Aᵀ and Ginv overflow the 50 MB L2,
-    whatever K; below it, while each lane group of 32 has
-    STREAM_ELEMS_PER_GROUP elements of them or more, counted in elements,
-    so alike for f32 and f64."""
+    """The resident kernel while its plan holds the slices in shared memory,
+    or reads at most GLOBAL_SLICE_BYTES of them a block from L2; the
+    streaming kernel otherwise, and so beyond the 50 MB L2; never by K."""
     assert pb.route_for(5000, 2500, 4, 32) == "stream"     # 125 MB
     assert pb.route_for(5000, 2500, 4, 1000) == "stream"
     assert pb.route_for(2500, 5000, 8, 1) == "stream"
     assert pb.route_for(500, 300, 8, 128) == "resident"
-    assert pb.route_for(500, 300, 8, 8) == "stream"
-    # 4 (2 m n + n^2) bytes at m = 2 n: 20 n^2 against 50 MiB.
-    n = int((pb.L2_BYTES / 20) ** 0.5)
-    assert pb.route_for(2 * n, n, 4, 10_000) == "resident"
-    assert pb.route_for(2 * n + 2, n + 1, 4, 10_000) == "stream"
-    # 5 n^2 elements at m = 2 n, against one and two lane groups.
-    n = int((pb.STREAM_ELEMS_PER_GROUP / 5) ** 0.5)
-    assert pb.route_for(2 * n, n, 4, 32) == "resident"
-    assert pb.route_for(2 * n + 2, n + 1, 4, 32) == "stream"
-    assert pb.route_for(2 * n + 2, n + 1, 8, 33) == "resident"
+    assert pb.route_for(500, 300, 4, 8) == "resident"
+    assert pb.route_for(2000, 1200, 8, 8) == "stream"      # no f64 plan
+    assert pb.route_for(2000, 1200, 4, 128) == "stream"    # 960,000 bytes a block
+    assert pb.route_for(1000, 600, 4, 8) == "resident"     # 242,400 bytes a block
+    # Tall A of 600 columns on the global path: the route turns where a
+    # block's slices pass the bound.
+    n, m = 600, 1000
+    while pb.route_for(m + 1, n, 4, 8) == "resident":
+        m += 1
+    for rows in (m, m + 1):
+        plan = pb.cluster_plan(rows, n, 4)
+        assert plan["C"] == 16 and not plan["in_smem"]
+        fits = 4 * (plan["HA"] * n + plan["HG"] * n) <= pb.GLOBAL_SLICE_BYTES
+        assert fits == (rows == m)
+    # Beyond the L2 (4 (2 m n + n^2) > 50 MiB) the slice bound has turned.
+    assert 4 * (2 * m * n + n * n) < 50 * 2**20
+    n = 1000
+    m = (50 * 2**20 // 4 - n * n) // (2 * n) + 1
+    assert pb.cluster_plan(m, n, 4) is not None and pb.route_for(m, n, 4, 8) == "stream"
+    # A wide A of 64 rows: the staged (n, 8) vectors set the widest plan.
+    n = 64
+    while pb.cluster_plan(64, n + 1, 4) is not None:
+        n += 1
+    assert pb.route_for(64, n, 4, 8) == "resident"
+    assert pb.route_for(64, n + 1, 4, 8) == "stream"
 
 
 def test_sweep_layouts():

@@ -226,11 +226,29 @@ def _sweep_args(cuda, shape, dtype, K, seed=7):
             tuple(g_s.params), cb, P.SolverSettings(max_iter=500), 1.0)
 
 
+def _assert_lanes_match(out, ref):
+    assert torch.equal(out["status"], ref["status"])
+    assert int((out["final_iter"] - ref["final_iter"]).abs().max()) <= 2
+    rel = (out["optval"] - ref["optval"]).abs() / ref["optval"].abs().clamp(min=1e-12)
+    assert float(rel.max()) <= 1e-4
+    lim = 5e-5 * max(1.0, float(ref["x12"].abs().max()))
+    assert float((out["x12"] - ref["x12"]).abs().max()) <= lim
+
+
+def _force_plan(monkeypatch, C, in_smem=True):
+    """Run the resident kernel on clusters of C blocks, whatever
+    cluster_plan would pick."""
+    layout = pb.cluster_layout
+    monkeypatch.setattr(pb, "route_for", lambda m, n, itemsize, K: "resident")
+    monkeypatch.setattr(pb, "cluster_plan",
+                        lambda m, n, itemsize: layout(m, n, itemsize, C, in_smem))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("shape", [(60, 40), (30, 70)], ids=["tall", "wide"])
 def test_batch_kernel_matches_plain(cuda, shape, dtype, monkeypatch):
-    """The L2-resident kernel (csrc/fused_admm_batch.cu) against the plain
-    version."""
+    """The resident kernel (csrc/fused_admm_batch.cu) on its plan against
+    the plain version."""
     monkeypatch.setattr(pb, "route_for", lambda m, n, itemsize, K: "resident")
     args = _sweep_args(cuda, shape, dtype, 6)
     before = pb.fused_batched_lasso_sweep.launches
@@ -238,12 +256,61 @@ def test_batch_kernel_matches_plain(cuda, shape, dtype, monkeypatch):
     ref = pb.fused_batched_lasso_sweep_ref(*args)
     torch.cuda.synchronize()
     assert pb.fused_batched_lasso_sweep.launches == before + 1
-    assert torch.equal(out["status"], ref["status"])
-    assert int((out["final_iter"] - ref["final_iter"]).abs().max()) <= 2
-    rel = (out["optval"] - ref["optval"]).abs() / ref["optval"].abs().clamp(min=1e-12)
-    assert float(rel.max()) <= 1e-4
-    lim = 5e-5 * max(1.0, float(ref["x12"].abs().max()))
-    assert float((out["x12"] - ref["x12"]).abs().max()) <= lim
+    _assert_lanes_match(out, ref)
+
+
+@pytest.mark.parametrize("C", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("shape", [(90, 50), (45, 100)], ids=["tall", "wide"])
+def test_batch_kernel_cluster_sizes_match_plain(cuda, shape, C, monkeypatch):
+    """The resident kernel with its plan forced onto clusters of 1 to 16
+    blocks (the 16-block cluster leaves some blocks fewer rows, the last
+    block of 90 rows on 16 none), f64, against the plain version."""
+    _force_plan(monkeypatch, C)
+    args = _sweep_args(cuda, shape, torch.float64, 11)
+    out = pb.fused_batched_lasso_sweep(*args)
+    ref = pb.fused_batched_lasso_sweep_ref(*args)
+    torch.cuda.synchronize()
+    _assert_lanes_match(out, ref)
+
+
+def test_batch_kernel_global_slices_match_plain(cuda):
+    """At 1000x600 f32 no cluster holds A's and Ginv's slices in shared
+    memory: the plan is 16 blocks reading them from global memory."""
+    plan = pb.cluster_plan(1000, 600, 4)
+    assert plan["C"] == 16 and not plan["in_smem"]
+    assert pb.route_for(1000, 600, 4, 5) == "resident"
+    args = _sweep_args(cuda, (1000, 600), torch.float32, 5)
+    before = pb.fused_batched_lasso_sweep.launches_by_route["resident"]
+    out = pb.fused_batched_lasso_sweep(*args)
+    ref = pb.fused_batched_lasso_sweep_ref(*args)
+    torch.cuda.synchronize()
+    assert pb.fused_batched_lasso_sweep.launches_by_route["resident"] == before + 1
+    _assert_lanes_match(out, ref)
+
+
+def test_batch_cluster_plan_matches_the_kernel(cuda):
+    """cluster_plan and the kernel's twin pick the same plan, and lay out
+    the same heights and shared memory for every cluster size."""
+    lib = pb._lib()
+    for m, n in ((60, 40), (40, 60), (120, 80), (500, 300), (300, 500), (1000, 600),
+                 (2000, 1200), (5000, 2500), (7, 3000), (3000, 7)):
+        for itemsize in (4, 8):
+            assert pb._twin_plan(lib, m, n, itemsize, 0, True) == pb.cluster_plan(m, n, itemsize)
+            for C in pb.CLUSTER_SIZES:
+                for in_smem in (True, False):
+                    assert (pb._twin_plan(lib, m, n, itemsize, C, in_smem)
+                            == pb.cluster_layout(m, n, itemsize, C, in_smem))
+
+
+def test_batch_cluster_that_does_not_fit_raises(cuda, monkeypatch):
+    """A plan whose shared memory the card refuses raises before anything
+    runs: no launch is counted, nothing falls back."""
+    _force_plan(monkeypatch, 1)
+    args = _sweep_args(cuda, (500, 300), torch.float32, 4)
+    before = pb.fused_batched_lasso_sweep.launches
+    with pytest.raises(RuntimeError):
+        pb.fused_batched_lasso_sweep(*args)
+    assert pb.fused_batched_lasso_sweep.launches == before
 
 
 def test_batched_graph_solve_launches_the_batch_kernel_once(cuda):
@@ -260,19 +327,37 @@ def test_batched_graph_solve_launches_the_batch_kernel_once(cuda):
 
 
 def test_batch_results_do_not_depend_on_lanes_per_block(cuda, monkeypatch):
-    """Every lane's sums run in one fixed order whatever the block holds, so
-    Kc = 1, 2, 4 and 8 give bit-identical lanes (the last block of 13
+    """Every lane's sums run in one fixed order whatever the cluster holds,
+    so Kc = 1, 2, 4 and 8 give bit-identical lanes (the last cluster of 13
     lanes is short for each)."""
     monkeypatch.setattr(pb, "route_for", lambda m, n, itemsize, K: "resident")
     args = _sweep_args(cuda, (60, 40), torch.float32, 13)
     outs = []
     for kc in pb.LANE_CHUNKS:
-        monkeypatch.setattr(pb, "chunk_for", lambda K, slots, kc=kc: kc)
+        monkeypatch.setattr(pb, "chunk_for", lambda K, clusters, kc=kc: kc)
         outs.append(pb.fused_batched_lasso_sweep(*args))
     torch.cuda.synchronize()
     for out in outs[1:]:
         for key in ("x12", "y12", "optval", "final_iter", "status", "rho"):
             assert torch.equal(out[key], outs[0][key]), key
+
+
+@pytest.mark.parametrize("shape", [(90, 50), (45, 100)], ids=["tall", "wide"])
+def test_batch_lanes_bit_equal_across_K_and_chunks(cuda, shape, monkeypatch):
+    """At a fixed plan (clusters of 4), a lane's results do not depend on K
+    or Kc: the first 3 lanes of 13, run at Kc = 1, 2, 4 and 8, and the same
+    3 lanes alone, bit for bit."""
+    _force_plan(monkeypatch, 4)
+    args = _sweep_args(cuda, shape, torch.float32, 13)
+    outs = []
+    for kc in pb.LANE_CHUNKS:
+        monkeypatch.setattr(pb, "chunk_for", lambda K, clusters, kc=kc: kc)
+        outs.append(pb.fused_batched_lasso_sweep(*args))
+        outs.append(pb.fused_batched_lasso_sweep(*args[:7], args[7][:3], *args[8:]))
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        for key in ("x12", "y12", "optval", "final_iter", "status", "rho"):
+            assert torch.equal(out[key][:3], outs[0][key][:3]), key
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
