@@ -167,11 +167,29 @@ Phases, each printing one JSON line of its own:
      3 DR iterations timed, (e) a (batch = 2, rows = 1) mesh: the bench
      λ-sweep, K = 128, one K2 launch per rank, and batched_cone_solve on
      socp_ball 804x200 f64 with K = 8, four K3 launches per rank, every lane
-     equal to the single-device run's; then (f) the row plan on an NCCL
+     equal to the single-device run's; (g) cone form on the column plan:
+     socp_ball 804x200 f64 through the HSDE path (SMW on the mismatched
+     plan, K_y whole) solved to tolerance, and lp_eq's standard-form LP in
+     its K_x form at m = 1000, n = 10000 f64 (80 MB; K_y = ZERO, K_x =
+     NON_NEG split with the columns of the plan auto_shard picks) through
+     the graph-form cone path, held at trajectory level for
+     ``LP_HOLD_ITERS`` iterations (``--mesh-lp-full``, with
+     ``--mesh-only``, solves it to tolerance instead); (h) the portfolio
+     QP, 1000 assets and 30 factors (A 1002x1000, P 1000x1000), on the row
+     and the column plan through qp_via="socp" with the polish (the host
+     IPM first), "socp" without it (the epigraph extension's DR, sharded
+     as A is) and "admm", each optval within 1e-6 of the first route's;
+     (i) checkpoints across the mesh and one device: a lasso cut on two
+     ranks, saved and resumed on one device, and the reverse, each equal
+     to the uninterrupted solve.  (g) to (i) are held to the
+     single-device eager solve (status, iterations, x within 1e-8), made
+     once on rank 0 for both plans; then (f) the row plan on an NCCL
      group of one rank.  It prints the all-reduces per ADMM and DR
      iteration (count and bytes), ms per iteration of the sharded and the
-     single-device solves, µs per all_reduce by size, and the spawn time.  Two ranks on one card
-     measure the software path (gloo stages through the host), not scaling.
+     single-device solves (for each case of (g) and (h) too, with its
+     all-reduces per iteration), µs per all_reduce by size, and the spawn
+     time.  Two ranks on one card measure the software path (gloo stages
+     through the host), not scaling.
 Phases 14 to 16 run with the launch counts reset, and must launch K1 and
 K3 (the densified routes); so do phases 17 to 21, which must launch K3,
 and phases 22 and 23, and 24 to 27, which must launch K1 and K3; 24 runs
@@ -3436,7 +3454,137 @@ def _mesh_batches(torch, P, M, rank, world):
     return rec
 
 
-def _mesh_rank(rank, world, store_path, out_path, backend):
+# Iterations at which phase 28 (g) holds the 1000x10000 LP to the
+# single-device loop (its solve to tolerance does not fit the phase).
+LP_HOLD_ITERS = 200
+LP_SHAPE = (1000, 10000)
+QP_ASSETS = 1000
+QP_ROUTES = (("socp_polish", "socp", True), ("socp", "socp", False), ("admm", "admm", True))
+
+
+def _lp_eq_kx(m, n, seed=42):
+    """benchmarks/problems.py's lp_eq (:87) in its K_x form: A0, b0 and c
+    drawn as there, without the −I block (min c'x, A0 x = b0, x ≥ 0)."""
+    rng = np.random.default_rng(seed)
+    A0 = rng.standard_normal((m, n))
+    x0 = rng.random(n) + 0.1
+    return A0, A0 @ x0, rng.random(n) + 0.5
+
+
+def _cone_cases(torch, P, M, mesh, rank, label, A, b, c, st, plans, P_q=None, **kw):
+    """One problem through ``ConeSolver``: the single-device eager solve on
+    rank 0 (the other ranks waiting), then the sharded one on every rank
+    for each (plan, shard) of ``plans``; each record with the status,
+    iterations, ms per iteration (one solve after init, host parts
+    included) and all-reduces per iteration by kind and bytes."""
+    def solver_for(A_in, **extra):
+        solver = P.ConeSolver(A_in, settings=st, **kw, **extra)
+        if P_q is None or kw.get("qp_via") == "admm":
+            solver.init()
+        return solver
+
+    ref = None
+    if rank == 0:
+        solver = solver_for(A, device=mesh.device)
+        ref, ref_ms = _timed(torch, lambda: solver.solve(b, c, P=P_q))
+    _rank_barrier(torch, M, mesh)
+    out = []
+    for plan, shard in plans:
+        op = shard(A, mesh)
+        solver = solver_for(op)
+        _rank_barrier(torch, M, mesh)
+        M.reset_stats()
+        sh, sh_ms = _timed(torch, lambda: solver.solve(b, c, P=P_q))
+        stats = dict(M.stats)
+        it = int(sh.final_iter)
+        rec = {"case": label, "shape": list(A.shape), "plan": op.plan, "asked": plan,
+               "status": int(sh.status), "iterations": it, "ms_per_iter": sh_ms / (it + 1),
+               "optval": float(sh.optval), "x_finite": bool(torch.isfinite(sh.x).all()),
+               "all_reduces_per_iter": {k: v / (it + 1) for k, v in stats.items()}}
+        if ref is not None:
+            rec.update(ref_status=int(ref.status), ref_iterations=int(ref.final_iter),
+                       ref_ms_per_iter=ref_ms / (int(ref.final_iter) + 1),
+                       ref_optval=float(ref.optval),
+                       x_max_abs_err=float((ref.x - sh.x).abs().max()))
+        out.append(rec)
+    _rank_barrier(torch, M, mesh)
+    return out
+
+
+def _mesh_lp(torch, P, M, mesh, rank, full=False):
+    """(g) lp_eq's LP in its K_x form at ``LP_SHAPE`` on the plan auto_shard
+    picks (the column plan): ``LP_HOLD_ITERS`` iterations, or with ``full``
+    to SUCCESS at 1e-4 / 1e-3 within 50,000."""
+    Cn = P.Cone
+    m, n = LP_SHAPE
+    A0, b0, c0 = _lp_eq_kx(m, n)
+    if M.auto_shard(A0, mesh).plan != "cols":
+        raise AssertionError("auto_shard did not pick the column plan for lp_eq")
+    st_lp = P.SolverSettings(use_fused=False, abs_tol=1e-4, rel_tol=1e-3,
+                             max_iter=50000 if full else LP_HOLD_ITERS)
+    out = _cone_cases(torch, P, M, mesh, rank, f"lp_eq_kx_{m}x{n}", A0, b0, c0, st_lp,
+                      [("auto", M.auto_shard)], Kx=[P.ConeConstraint(Cn.NON_NEG, range(n))],
+                      Ky=[P.ConeConstraint(Cn.ZERO, range(m))])
+    out[-1]["hold"] = "solve" if full else "trajectory"
+    return out
+
+
+def _mesh_cone(torch, P, M, mesh, rank):
+    """(g) the column plan of both cone paths, (h) the portfolio QP on both
+    plans through each route; every record x_limit 1e-8 (f64)."""
+    problems, _ = cone_problems()
+    soc = problems.socp_ball()
+    st = P.SolverSettings(use_fused=False, max_iter=CONE_MAX_ITER, **CONE_TOL)
+    out = _cone_cases(torch, P, M, mesh, rank, "socp_ball_804x200", soc["A"], soc["b"],
+                      soc["c"], st, [("cols", M.shard_matrix_cols)],
+                      Ky=P.dims_to_cones(soc["dims"]))
+    out += _mesh_lp(torch, P, M, mesh, rank)
+    q = problems.portfolio(n_assets=QP_ASSETS, n_factors=30)
+    Ky = P.dims_to_cones(q["dims"])
+    for route, via, polish in QP_ROUTES:
+        st_q = P.SolverSettings(use_fused=False, abs_tol=1e-7, rel_tol=1e-7, max_iter=20000,
+                                polish=polish)
+        out += _cone_cases(torch, P, M, mesh, rank, f"portfolio_{QP_ASSETS}_{route}", q["A"], q["b"],
+                           q["c"], st_q, [("rows", M.shard_matrix), ("cols", M.shard_matrix_cols)],
+                           P_q=q["P"], Ky=Ky, qp_via=via)
+    return out
+
+
+def _mesh_checkpoint(torch, P, M, mesh, rank, tmp):
+    """(i) a row-sharded f64 lasso cut at 40 iterations, saved (rank 0
+    writes) and resumed on one device, against the sharded solver's own
+    continuation; then the reverse: a single-device cut (rank 0's file)
+    resumed on the mesh, against the single-device continuation."""
+    F = P.Function
+    A, b, lam = make_lasso(500, 300)
+    A = A.astype(np.float64)
+    f = P.FunctionVector(F.SQUARE, 500, b=b)
+    g = P.FunctionVector(F.ABS, 300, c=lam)
+    full = P.SolverSettings(use_fused=False, abs_tol=1e-6, rel_tol=1e-6)
+    cut = full.replace(max_iter=40)
+    out = {}
+    path = os.path.join(tmp, "mesh_ckpt.npz")
+    sh = P.GraphFormSolver(M.shard_matrix(A, mesh), settings=cut)
+    sh.solve(f, g)
+    sh.save_state(path)
+    one = P.GraphFormSolver(A, settings=full, device=mesh.device).load_state(path)
+    resumed = one.solve(f, g)
+    cont = sh.solve(f, g, settings=full)
+    out["to_one"] = (resumed, cont)
+    path1 = os.path.join(tmp, "one_ckpt.npz")
+    one = P.GraphFormSolver(A, settings=cut, device=mesh.device)
+    one.solve(f, g)
+    if rank == 0:
+        one.save_state(path1)
+    _rank_barrier(torch, M, mesh)
+    sh = P.GraphFormSolver(M.shard_matrix(A, mesh), settings=full).load_state(path1)
+    out["to_mesh"] = (sh.solve(f, g), one.solve(f, g, settings=full))
+    _rank_barrier(torch, M, mesh)
+    return {k: {"status": [int(r.status) for r in v], "iterations": [int(r.final_iter) for r in v],
+                "x_max_abs_err": float((v[0].x - v[1].x).abs().max())} for k, v in out.items()}
+
+
+def _mesh_rank(rank, world, store_path, out_path, backend, lp_full=False):
     """One spawned rank of phase 28: joins the group (a FileStore, a group
     timeout) and runs the phase's parts; an exception ends the process with
     a non-zero code and its traceback."""
@@ -3463,7 +3611,9 @@ def _mesh_rank(rank, world, store_path, out_path, backend):
         if rank == 0:
             print(f"mesh rank 0: {part} done at {time.perf_counter() - t0:.1f} s", flush=True)
 
-    if backend == "nccl":
+    if lp_full:
+        out["cone"] = _mesh_lp(torch, P, M, mesh, rank, full=True)
+    elif backend == "nccl":
         A, b, lam = make_lasso(500, 300)
         out["graph"] = [dict(_solve_pair(
             torch, P, M, mesh, A, P.FunctionVector(P.Function.SQUARE, 500, b=b),
@@ -3479,6 +3629,11 @@ def _mesh_rank(rank, world, store_path, out_path, backend):
                                                      soc["c"], P.dims_to_cones(soc["dims"]))
         out["batches"] = _mesh_batches(torch, P, M, rank, world)
         done("(e)")
+        out["cone"] = _mesh_cone(torch, P, M, mesh, rank)
+        done("(g), (h)")
+        out["checkpoint"] = _mesh_checkpoint(torch, P, M, mesh, rank,
+                                             os.path.dirname(store_path))
+        done("(i)")
         out["sparse"] = _mesh_sparse(torch, P, M, mesh, rank)
         done("(d)")
     out["jax_loaded"] = "jax" in sys.modules or "pogs_tpu" in sys.modules
@@ -3487,7 +3642,7 @@ def _mesh_rank(rank, world, store_path, out_path, backend):
     dist.destroy_process_group()
 
 
-def _spawn_ranks(world, backend):
+def _spawn_ranks(world, backend, lp_full=False):
     """Spawn ``world`` ranks of :func:`_mesh_rank`; every rank's results,
     and the time from the spawn to the last rank's group init."""
     import multiprocessing as mp
@@ -3498,7 +3653,7 @@ def _spawn_ranks(world, backend):
     with tempfile.TemporaryDirectory() as tmp:
         store, out = os.path.join(tmp, "store"), os.path.join(tmp, "out")
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=_mesh_rank, args=(r, world, store, out, backend))
+        procs = [ctx.Process(target=_mesh_rank, args=(r, world, store, out, backend, lp_full))
                  for r in range(world)]
         for p in procs:
             p.start()
@@ -3521,10 +3676,38 @@ def _spawn_ranks(world, backend):
     return results, wall
 
 
+def _print_cone(cn):
+    c = cn["all_reduces_per_iter"]
+    print(f"mesh cone {cn['case']} {cn['plan']}: {cn['iterations']} iterations "
+          f"(status {cn['status']}), sharded {cn['ms_per_iter']:.4f} ms/iter, single-device "
+          f"eager {cn['ref_ms_per_iter']:.4f} ms/iter, x err {cn['x_max_abs_err']:.3g}, "
+          f"optval {cn['optval']:.12g}; all-reduces per iteration {c['vector']:.3f} vector "
+          f"({c['vector_bytes']:.1f} B), {c['small']:.3f} small ({c['small_bytes']:.1f} B), "
+          f"{c['broadcast']:.3f} broadcast", flush=True)
+
+
+def _cone_ok(cn) -> bool:
+    """A record of (g) or (h) against the single-device eager solve."""
+    return (cn["x_finite"] and cn["status"] == cn["ref_status"]
+            and cn["iterations"] == cn["ref_iterations"] and cn["x_max_abs_err"] <= 1e-8
+            and (cn.get("hold") == "trajectory" or cn["status"] == 0))
+
+
+def phase_mesh_lp_full(torch, P):
+    """``--mesh-only --mesh-lp-full``: phase 28 (g)'s LP alone, solved to
+    tolerance by two gloo ranks and by rank 0 on one device."""
+    results, wall = _spawn_ranks(MESH_RANKS, "gloo", lp_full=True)
+    cn = results[0]["cone"][0]
+    emit({"phase": "mesh_lp_full", "ranks": MESH_RANKS, "spawn_to_done_s": wall, **cn})
+    _print_cone(cn)
+    if not _cone_ok(cn):
+        raise AssertionError(f"phase 28 (g) LP to tolerance: {cn}")
+
+
 def phase_mesh(torch, P):
-    """Phase 28: two gloo ranks on cuda:0 ((a) to (e)), then an NCCL group of
-    one rank ((f)); returns the K2 and K3 launches the ranks made on the
-    phase's main path (e)."""
+    """Phase 28: two gloo ranks on cuda:0 ((a) to (e), (g) to (i)), then an
+    NCCL group of one rank ((f)); returns the K2 and K3 launches the ranks
+    made on the phase's main path (e)."""
     results, wall = _spawn_ranks(MESH_RANKS, "gloo")
     nccl, nccl_wall = _spawn_ranks(1, "nccl")
     r0 = results[0]
@@ -3533,6 +3716,7 @@ def phase_mesh(torch, P):
            "all_reduce_us": r0["all_reduce_us"],
            "graph": r0["graph"], "all_reduces_per_iter": r0["budget"],
            "sparse": r0["sparse"], "batches": [r["batches"] for r in results],
+           "cone": r0["cone"], "checkpoint": r0["checkpoint"],
            "nccl": {"backend": nccl[0]["backend"], "spawn_to_done_s": nccl_wall,
                     "all_reduce_us": nccl[0]["all_reduce_us"], "graph": nccl[0]["graph"]}}
     fails = []
@@ -3558,6 +3742,17 @@ def phase_mesh(torch, P):
             ok = s["x_finite"] and all(e <= 1e-12 for e in s["op_errors"].values())
         if not ok:
             fails.append(f"sparse {s['case']}")
+    qp_ref = {c["case"]: c["ref_optval"] for c in r0["cone"]}[f"portfolio_{QP_ASSETS}_socp_polish"]
+    for cn in r0["cone"]:
+        ok = _cone_ok(cn)
+        if cn["case"].startswith("portfolio"):
+            ok = ok and abs(cn["optval"] - qp_ref) <= 1e-6 * abs(qp_ref)
+        if not ok:
+            fails.append(f"cone {cn['case']} {cn['plan']}")
+    for k, ck in r0["checkpoint"].items():
+        if not (ck["status"] == [0, 0] and ck["iterations"][0] == ck["iterations"][1]
+                and ck["x_max_abs_err"] <= 1e-8):
+            fails.append(f"checkpoint {k}: {ck}")
     k2 = k3 = 0
     for r in results:
         b = r["batches"]
@@ -3585,6 +3780,11 @@ def phase_mesh(torch, P):
         print(f"mesh all-reduces per {'DR' if kind == 'dr' else 'ADMM'} iteration ({kind}): "
               f"{c['vector']:g} vector ({c['vector_bytes']:g} B), "
               f"{c['small']:g} small ({c['small_bytes']:g} B)", flush=True)
+    for cn in r0["cone"]:
+        _print_cone(cn)
+    for k, ck in r0["checkpoint"].items():
+        print(f"mesh checkpoint {k}: resumed / uninterrupted status {ck['status']}, iterations "
+              f"{ck['iterations']}, x err {ck['x_max_abs_err']:.3g}", flush=True)
     for name, us in ((f"gloo, {MESH_RANKS} ranks on {MESH_DEVICE}", r0["all_reduce_us"]),
                      ("nccl, 1 rank", nccl[0]["all_reduce_us"])):
         print(f"mesh all_reduce ({name}), median us by elements: "
@@ -3617,7 +3817,10 @@ def main() -> int:
     native_build = phase_build()
     if "--mesh-only" in sys.argv[1:]:
         # Phase 28 alone (after the build), for work on the sharded path.
-        phase_mesh(torch, P)
+        if "--mesh-lp-full" in sys.argv[1:]:
+            phase_mesh_lp_full(torch, P)
+        else:
+            phase_mesh(torch, P)
         print(smi, flush=True)
         return 0
     if "--batch-only" in sys.argv[1:]:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+E1 = 2.718281828459045  # e
 # The unique pole of e^{2u} + u, and the grid's size and kept brackets.
 U_POLE = -0.4263027510068963
 N_GRID = 65

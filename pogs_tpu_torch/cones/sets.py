@@ -201,8 +201,9 @@ class ConeSet:
 
 class ShardedConeSet:
     """A :class:`ConeSet` over a vector split across ranks, as a sharded
-    operator splits its y side (``parallel/mesh.py``): this rank holds the
-    entries [A.lo, A.hi).
+    operator splits its vectors (``parallel/mesh.py``): K_y with the rows of
+    the row plan, K_x with the columns of the column plan.  This rank holds
+    the entries [A.lo, A.hi).
 
     Separable cones and the cones that lie inside this rank's block project
     locally.  A cone that spans blocks is known to every rank (the
@@ -335,9 +336,10 @@ class ShardedConeSet:
         return w
 
 
-def shard_cones(cones, A):
-    """``cones`` over the y side of A: a :class:`ShardedConeSet` where a
-    sharded A splits that side, else ``cones`` itself."""
-    if getattr(A, "sharded_side", None) != "m" or isinstance(cones, ShardedConeSet):
+def shard_cones(cones, A, side: str = "m"):
+    """``cones`` over one side of A (``"m"``: K_y, ``"n"``: K_x): a
+    :class:`ShardedConeSet` where a sharded A splits that side, else
+    ``cones`` itself."""
+    if getattr(A, "sharded_side", None) != side or isinstance(cones, ShardedConeSet):
         return cones
     return ShardedConeSet(cones, A)

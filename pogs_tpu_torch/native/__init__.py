@@ -252,6 +252,16 @@ def load() -> ct.CDLL:
     return _lib
 
 
+def is_available() -> bool:
+    """Whether the native library builds and loads here (a C++ compiler
+    that takes the sources); builds it on the first call."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def version() -> int:
     return int(load().pogs_native_version())
 

@@ -379,6 +379,14 @@ def auto_shard(A, mesh: Mesh, axis: str = "rows", dtype=None) -> ShardedMatrix:
     return fn(A, mesh, axis, dtype)
 
 
+def shard_like(A, like: ShardedMatrix, dtype=None) -> ShardedMatrix:
+    """A dense matrix (the same on every rank) sharded as ``like`` is: its
+    plan, mesh and axis, and its dtype unless ``dtype`` is given (a QP's
+    epigraph extension takes its caller's layout)."""
+    shard = shard_matrix if like.plan == "rows" else shard_matrix_cols
+    return shard(A, like.mesh, like.axis, like.dtype if dtype is None else dtype)
+
+
 def replicate(x, mesh: Mesh, src: int = 0) -> torch.Tensor:
     """x whole on every rank of the mesh, on ``mesh.device``: rank ``src``'s
     copy is broadcast, so every rank holds the same bits."""

@@ -34,6 +34,11 @@ def anderson_init(dim: int, mem: int, dtype, device=None) -> AndersonState:
                          k=torch.zeros((), dtype=torch.int32, device=device))
 
 
+def anderson_reset(st: AndersonState) -> AndersonState:
+    """The state with its history dropped (k = 0)."""
+    return st._replace(k=torch.zeros_like(st.k))
+
+
 def anderson_step(st: AndersonState, s_prev, s_new, reg: float = 1e-10,
                   max_weight: float = 20.0, split=None):
     """One step for the map output ``s_new = G(s_prev)``.

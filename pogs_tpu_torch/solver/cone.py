@@ -40,11 +40,19 @@ SparseMatrix: the HSDE solve then takes the matrix-free ``cg`` strategy,
 and the graph-form cone path the CGLS projector; neither reaches the
 kernel.
 
-A row-sharded A (``parallel/mesh.py::shard_matrix``, the SMW strategy
-through the reduced Gram; ``parallel/sparse.py::shard_sparse``, the ``cg``
-strategy) runs the eager loops with K_y split as the rows are
-(``cones/sets.py::ShardedConeSet``); the kernel takes neither, and the
-result comes back whole on every rank.  QPs take no sharded A.
+A sharded A runs the eager loops; the kernel takes none, and the result
+comes back whole on every rank.  On the row plan
+(``parallel/mesh.py::shard_matrix``, the SMW strategy through the reduced
+Gram; ``parallel/sparse.py::shard_sparse``, the ``cg`` strategy) K_y is
+split as the rows are, on the column plan (``shard_matrix_cols``) K_x as
+the columns are (``cones/sets.py::ShardedConeSet``); the other cone set is
+whole.  A QP on a sharded dense A takes its route as on one device: the
+host parts (the IPM, the eigh of P, the epigraph extension, the PDAS
+polish) work on A gathered once per solver, as the JAX package's host
+parts read its whole A; the epigraph sub-solver runs on the extension
+sharded as the caller's A is (``parallel/mesh.py::shard_like``), and the
+``admm`` route on the sharded equilibrated A.  A QP on a sharded sparse A
+is refused, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -168,18 +176,21 @@ def smw_factor_from(A, Kinv, b_s, c_s) -> dict:
     from the Gram inverse the direct projector caches: tall, Kinv =
     (I + AᵀA)⁻¹; wide, Woodbury through the m×m Kinv = (I + AAᵀ)⁻¹.  The
     cone kernel takes Kinv, t_x, t_y and s_den; the eager loop ``apply``,
-    which maps a whole x-side vector to a whole one.  On a sharded A the
-    products carry their collectives and t is this rank's parts."""
+    which maps this rank's part of an x-side vector to its part of the
+    result.  On a sharded A the products carry their collectives and t is
+    this rank's parts: Kinv's side is gathered where the plan splits it (a
+    tall A on columns, a wide one on rows), and a wide A on the column plan
+    applies Woodbury with no gather but A x's all-reduce."""
     m, n = A.shape
     amv, armv = matvecs(A)
     if m >= n:
         def apply_kinv(v):
-            return torch.mv(Kinv, v)
+            return part(A, "n", torch.mv(Kinv, whole(A, "n", v)))
     else:
         def apply_kinv(v):
-            w = torch.mv(Kinv, whole(A, "m", amv(part(A, "n", v))))
-            return v - whole(A, "n", armv(part(A, "m", w)))
-    t_x = part(A, "n", apply_kinv(whole(A, "n", c_s - armv(b_s))))
+            w = part(A, "m", torch.mv(Kinv, whole(A, "m", amv(v))))
+            return v - armv(w)
+    t_x = apply_kinv(c_s - armv(b_s))
     t_y = b_s + amv(t_x)
     cx, = side_sums(A, "n", [("dot", c_s, t_x)])
     by, = side_sums(A, "m", [("dot", b_s, t_y)])
@@ -216,9 +227,6 @@ class ConeSolver:
         self._A_raw = A
         Aop = matrix_operator(A, self.dtype, self.device, sparse_policy)
         self.sharded = is_sharded(Aop)
-        if self.sharded and Aop.sharded_side != "m":
-            raise NotImplementedError("a cone problem takes a row-sharded A "
-                                      "(shard_matrix or shard_sparse)")
         self.m, self.n = Aop.shape
         self.Kx = ConeSet(list(Kx), self.n)
         self.Ky = ConeSet(list(Ky), self.m)
@@ -230,10 +238,11 @@ class ConeSolver:
         self._needs_svec = (self.Ky.has_sdp or self.Kx.has_sdp) and not assume_svec
         if self._needs_svec:
             Aop = Aop.scale(part(Aop, "m", self._tensor(self._row_scale)),
-                            self._tensor(1.0 / self._col_scale))
+                            part(Aop, "n", self._tensor(1.0 / self._col_scale)))
         self.A = Aop
-        # K_y as the loops see it: split as A's rows are.
+        # K_y and K_x as the loops see them: split as A's rows or columns are.
         self.Ky_loc = shard_cones(self.Ky, Aop)
+        self.Kx_loc = shard_cones(self.Kx, Aop, "n")
         base = settings or SolverSettings()
         # Cone problems run the graph loop in exact-tolerance mode.
         self.settings = base.replace(use_exact_tol=True)
@@ -270,7 +279,7 @@ class ConeSolver:
             proj = DirectProjector("inverse") if self.projector == "direct" else CglsProjector()
             with highest_precision():
                 eq = equilibrate(self.A, constrain_d=self.Ky_loc.constrain_average,
-                                 constrain_e=self.Kx.constrain_average)
+                                 constrain_e=self.Kx_loc.constrain_average)
                 norm_A = norm2_est(eq.A)
                 factor = proj.init(eq.A, s=1.0)
             keep = eq.A.is_sparse or self.sharded
@@ -342,8 +351,9 @@ class ConeSolver:
         if settings.rho != DEFAULT_RHO:
             self.rho = float(settings.rho)
         if P is not None:
-            if self.sharded:
-                raise NotImplementedError("QPs take no sharded A")
+            if self.sharded and self.A.is_sparse:
+                raise NotImplementedError("a QP takes no sharded sparse A (nor does the "
+                                          "JAX package); shard it dense")
             P = self._check_P(P)
             # The embedding with P in Q does not have the QP optimum as a
             # fixed point, so QPs go through one of the QP routes.
@@ -411,7 +421,7 @@ class ConeSolver:
         A, d, e = st["A"], st["d"], st["e"]
         m, n = local_shape(A)
         b_orig = part(A, "m", b_orig)
-        b_s, c_s = b_orig * d, c_orig * e
+        b_s, c_s = b_orig * d, part(A, "n", c_orig) * e
         # The cached Gram inverse serves SMW; without it (the CGLS projector)
         # hsde_solve factors I + AᵀA itself.
         fac = (self.smw_factor(b_s, c_s)
@@ -439,7 +449,7 @@ class ConeSolver:
             x_off, y_off, nu_off = w[:n] * e, torch.zeros_like(s_orig), w[n:n + m] * d
         else:
             x_off, y_off, nu_off = torch.zeros_like(x_s), b_orig, torch.zeros_like(y_s)
-        x = torch.where(tau_ok, x_s * e, x_off)
+        x = whole(A, "n", torch.where(tau_ok, x_s * e, x_off))
         y = whole(A, "m", torch.where(tau_ok, b_orig - s_orig, y_off))
         nu = whole(A, "m", torch.where(tau_ok, y_s * d, nu_off))
         return {"x": x, "y": y, "mu": torch.zeros_like(x), "nu": nu,
@@ -466,10 +476,10 @@ class ConeSolver:
         st = self._init_state
         A, d, e = st["A"], st["d"], st["e"]
         m, n = local_shape(A)
-        Kx, Ky = self.Kx, self.Ky_loc
-        b_s, c_s = part(A, "m", b_orig) * d, c_orig * e
+        Kx, Ky = self.Kx_loc, self.Ky_loc
+        b_s, c_s = part(A, "m", b_orig) * d, part(A, "n", c_orig) * e
         # c to unit norm, the scale folded into optval.
-        c_nrm = torch.linalg.vector_norm(c_s)
+        c_nrm, = side_sums(A, "n", [("norm", c_s)])
         c_scale = torch.where(c_nrm > 0, 1.0 / torch.clamp(c_nrm, min=1e-30),
                               torch.ones_like(c_nrm))
         c_n = c_s * c_scale
@@ -478,15 +488,16 @@ class ConeSolver:
             return Kx.project(x_in - c_n / rho), b_s - Ky.project(b_s - y_in)
 
         def eval_fn(x12, y12):
-            return torch.dot(c_n, x12) / c_scale
+            return side_sums(A, "n", [("dot", c_n, x12)])[0] / c_scale
 
         z0 = torch.zeros(m + n, dtype=self.dtype, device=self.device)
         out = admm_loop(A, st["norm_A"], d, e, prox_fn, eval_fn, self._project_fn(settings),
                         settings, z0, z0, self.rho)
         status = postsolve_verify(A, d, e, out["x12"], out["y12"], out["status"],
                                   settings.abs_tol, settings.rel_tol)
-        return {"x": out["x12"] * e, "y": whole(A, "m", out["y12"] / d),
-                "mu": out["mu_scaled"] / e, "nu": whole(A, "m", out["nu_scaled"] * d),
+        return {"x": whole(A, "n", out["x12"] * e), "y": whole(A, "m", out["y12"] / d),
+                "mu": whole(A, "n", out["mu_scaled"] / e),
+                "nu": whole(A, "m", out["nu_scaled"] * d),
                 "optval": out["optval"],
                 "final_iter": out["final_iter"], "status": status,
                 "r_pri": out["nrm_r"], "r_dua": out["nrm_s"], "gap": out["gap"]}
@@ -508,8 +519,11 @@ class ConeSolver:
         return P
 
     def _host_A(self):
+        """The caller's A on the host in float64, made once per solver; a
+        sharded A gathered first (one all-reduce)."""
         if self._A_host is None:
-            self._A_host = host_matrix(self._A_raw)
+            A = self._A_raw
+            self._A_host = _host(A.dense()) if self.sharded else host_matrix(A)
         return self._A_host
 
     def _objective(self, c, P, x):
@@ -539,6 +553,11 @@ class ConeSolver:
         # CGLS projector).
         A_ext, r = epigraph_extension(self._host_A(), factor, sparse=self.A.is_sparse)
         A_ext = A_ext.astype(npdt)
+        if self.sharded:
+            # The sub-solver's DR segments run sharded as the caller asked
+            # (imported here: parallel/ imports this module).
+            from pogs_tpu_torch.parallel.mesh import shard_like
+            A_ext = shard_like(A_ext, self._A_raw)
         b_ext = np.concatenate([_host(b), [1.0, -1.0], np.zeros(r)])
         c_ext = np.concatenate([_host(c), [1.0]])
         Ky_ext = list(self.Ky.constraints) + [ConeConstraint(Cone.SOC, range(m, m + r + 2))]
@@ -653,13 +672,13 @@ class ConeSolver:
         if self._needs_svec:
             # SDP cones under the svec transform would conjugate P too.
             return self._solve_qp_as_socp(b, c, P, settings)
-        n, m = self.n, self.m
         npdt = np.float64 if self.dtype == torch.float64 else np.float32
         b, c = _host(b).astype(npdt), _host(c).astype(npdt)
         self.init()
         st = self._init_state
         A, d, e = st["A"], st["d"], st["e"]
-        e_host = _host(e)
+        m, n = local_shape(A)
+        e_host = _host(whole(A, "n", e))
         diag_mode = P.ndim == 1
         if diag_mode:
             lam_eig = np.maximum(P, 0.0) * e_host * e_host
@@ -674,21 +693,34 @@ class ConeSolver:
         sigma = max(float(lam_eig.max(initial=0.0)), float(np.linalg.norm(c * e_host)), 1e-12)
         t0 = time.perf_counter()
         with highest_precision():
-            b_s = self._tensor(b) * d
-            c_s = self._tensor(c) * e / sigma
+            b_s = part(A, "m", self._tensor(b)) * d
+            c_s = part(A, "n", self._tensor(c)) * e / sigma
             lam_hat = self._tensor(lam_eig / sigma)
-            Ky = self.Ky
+            Ky = self.Ky_loc
+            # On the column plan x is split: a diagonal P takes this rank's
+            # eigenvalues; V's product takes x gathered and keeps this rank's
+            # rows of V (its columns of the result).
+            if diag_mode:
+                lam_x = part(A, "n", lam_hat)
+            else:
+                V_rows = part(A, "n", V)
 
             def prox_fn(x_in, y_in, rho):
                 if diag_mode:
-                    x12 = (rho * x_in - c_s) / (lam_hat + rho)
+                    x12 = (rho * x_in - c_s) / (lam_x + rho)
                 else:
-                    x12 = torch.mv(V, torch.mv(V.T, rho * x_in - c_s) / (lam_hat + rho))
+                    v = whole(A, "n", rho * x_in - c_s)
+                    x12 = torch.mv(V_rows, torch.mv(V.T, v) / (lam_hat + rho))
                 return x12, b_s - Ky.project(b_s - y_in)
 
             def eval_fn(x12, y12):
-                w = x12 if diag_mode else torch.mv(V.T, x12)
-                return torch.dot(c_s, x12) + 0.5 * torch.dot(w, lam_hat * w)
+                if diag_mode:
+                    cx, wlw = side_sums(A, "n", [("dot", c_s, x12), ("dot", x12, lam_x * x12)])
+                else:
+                    cx, = side_sums(A, "n", [("dot", c_s, x12)])
+                    w = torch.mv(V.T, whole(A, "n", x12))
+                    wlw = torch.dot(w, lam_hat * w)
+                return cx + 0.5 * wlw
 
             z0 = torch.zeros(m + n, dtype=self.dtype, device=self.device)
             out = admm_loop(A, st["norm_A"], d, e, prox_fn, eval_fn, self._project_fn(settings),
@@ -697,8 +729,10 @@ class ConeSolver:
                                       settings.abs_tol, settings.rel_tol)
             # Undo the objective normalization: the duals of the σ-scaled
             # objective are σ× the original's.
-            x, y, nu = out["x12"] * e, out["y12"] / d, out["nu_scaled"] * d * sigma
-            mu = out["mu_scaled"] / e * sigma
+            x = whole(A, "n", out["x12"] * e)
+            y = whole(A, "m", out["y12"] / d)
+            nu = whole(A, "m", out["nu_scaled"] * d * sigma)
+            mu = whole(A, "n", out["mu_scaled"] / e * sigma)
         x, y, nu, status, nrm_r, nrm_s = self._polish_qp(
             P, b, c, x, y, nu, Status(int(status)), out["nrm_r"], out["nrm_s"], settings)
         return SolverResult(

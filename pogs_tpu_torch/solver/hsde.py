@@ -56,9 +56,11 @@ side; every dot and norm on that side sums through the operator's
 ``reduce`` (the check's in two stacked calls, one before and one after τ is
 known), the cone projections of a row-sharded y go through
 ``ShardedConeSet``, and the SMW and ``cg`` solves take the operator's
-products.  The polish, where it runs, runs whole on every rank on the
-gathered A and iterate, and each rank keeps its part of the point.  The
-``direct`` strategy takes no sharded A.
+products.  P is whole on every rank: on the row plan Px is local, on the
+column plan each rank multiplies its rows of P by x gathered (one
+all-reduce of length n).  The polish, where it runs, runs whole on every
+rank on the gathered A and iterate, and each rank keeps its part of the
+point.  The ``direct`` strategy takes no sharded A.
 """
 
 from __future__ import annotations
@@ -145,16 +147,27 @@ def _rmv_dots(A, y, ys):
     return matvecs(A)[1](y), side_sums(A, "m", [("dot", u, v) for u, v in ys])
 
 
+def p_apply(A, P):
+    """x ↦ Px on this rank's part of x, P a dense (n, n) tensor whole on
+    every rank (None for no P): this rank's rows of P times x whole (on a
+    column-sharded A, x gathered)."""
+    if P is None:
+        return None
+    P_rows = part(A, "n", P)
+    return lambda x: torch.mv(P_rows, whole(A, "n", x))
+
+
 def _q_apply_split(A, b, c, P=None):
     """Split-form Q and Qᵀ: (x, y, τ) → (x', y', τ'); A a tensor or an
     operator, P a dense (n, n) tensor or None."""
     amv, armv = matvecs(A)
+    pmv = p_apply(A, P)
 
     def q(x, y, tau):
         aty, (by,) = _rmv_dots(A, y, [(b, y)])
         top = aty + c * tau
         if P is not None:
-            top = top + torch.mv(P, x)
+            top = top + pmv(x)
         cx, = side_sums(A, "n", [("dot", c, x)])
         return (top, -amv(x) + b * tau, -cx - by)
 
@@ -164,7 +177,7 @@ def _q_apply_split(A, b, c, P=None):
         aty, dots = _rmv_dots(A, y, [(b, y), (y, y)] if sq else [(b, y)])
         top = -aty - c * tau
         if P is not None:
-            top = top + torch.mv(P, x)
+            top = top + pmv(x)
         cx, = side_sums(A, "n", [("dot", c, x)])
         out = (top, amv(x) - b * tau, cx + dots[0])
         if sq:
@@ -195,19 +208,26 @@ def smw_setup(A, b, c, P=None):
     L = torch.linalg.cholesky(K)
     Linv = torch.linalg.solve_triangular(L, eye, upper=False)
     Kinv = Linv.T @ Linv
-    t_x = part(A, "n", torch.mv(Kinv, whole(A, "n", c - armv(b))))
+    t_x = _kinv_part(Kinv, A, c - armv(b))
     t_y = b + amv(t_x)
     cx, by = _dots(A, c, t_x, b, t_y)
     s_den = 1.0 + cx + by
     return {"Kinv": Kinv, "t_x": t_x, "t_y": t_y, "s_den": s_den}
 
 
+def _kinv_part(Kinv, A, v):
+    """Kinv times an x-side vector, this rank's part in and out (Kinv whole:
+    the part is gathered where A splits the x side)."""
+    return part(A, "n", torch.mv(Kinv, whole(A, "n", v)))
+
+
 def _smw_solve_split(factor, A, b, c, ux, uy, ut):
     """(I + Q)⁻¹ u by SMW back-substitution, split form.  ``factor`` may
-    carry an ``apply`` callable for (I + AᵀA)⁻¹."""
+    carry an ``apply`` callable for (I + AᵀA)⁻¹ that maps this rank's part
+    of an x-side vector to its part of the result."""
     amv, armv = matvecs(A)
-    apply_kinv = factor.get("apply") or (lambda v: torch.mv(factor["Kinv"], v))
-    p_x = part(A, "n", apply_kinv(whole(A, "n", ux - armv(uy))))
+    apply_kinv = factor.get("apply") or (lambda v: _kinv_part(factor["Kinv"], A, v))
+    p_x = apply_kinv(ux - armv(uy))
     p_y = uy + amv(p_x)
     cx, by = _dots(A, c, p_x, b, p_y)
     h_dot_p = cx + by
@@ -251,7 +271,7 @@ def jacobi_inv_diag_split(A, b, c, P=None):
         row_a = torch.sum(A * A, dim=1)
     dx = 1.0 + col_a + c * c
     if P is not None:
-        dx = dx + 2.0 * torch.diagonal(P) + torch.sum(P * P, dim=0)
+        dx = dx + part(A, "n", 2.0 * torch.diagonal(P) + torch.sum(P * P, dim=0))
     dy = 1.0 + row_a + b * b
     cc, bb = _dots(A, c, c, b, b)
     dtau = 1.0 + cc + bb
@@ -556,9 +576,8 @@ def hsde_solve(
     b = torch.as_tensor(b, dtype=dt, device=dev)
     c = torch.as_tensor(c, dtype=dt, device=dev)
     if P is not None:
-        if sharded and A.sharded_side == "n":
-            raise NotImplementedError("P with a column-sharded A")
         P = torch.as_tensor(P, dtype=dt, device=dev)
+    pmv = p_apply(A, P)
 
     def T(v):
         return torch.as_tensor(v, dtype=dt, device=dev)
@@ -657,7 +676,7 @@ def hsde_solve(
         aty = armv(y_s)
         px = None
         if P is not None:
-            px = torch.mv(P, x_s)
+            px = pmv(x_s)
             aty = aty + px
         x_terms = [("dot", c, x_s), ("norm", aty + c), ("norm", aty)]
         if P is not None:
@@ -706,7 +725,8 @@ def hsde_solve(
         unbdd_sup = firm & (c_neg > cert_tol) & (ax_dist <= cert_tol * c_neg)
         if P is not None:
             # The ray must also lie in P's null space.
-            unbdd_sup = unbdd_sup & (_nrm(torch.mv(P, wx)) <= cert_tol * c_neg)
+            p_wx, = side_sums(A, "n", [("norm", pmv(wx))])
+            unbdd_sup = unbdd_sup & (p_wx <= cert_tol * c_neg)
         # Dominance: each Farkas product over the joint ray norm and its
         # own data norm; the competing one must be K_CERT_CROSS x weaker,
         # and if both hold the dominant one wins.

@@ -3,18 +3,23 @@ points run by default.
 
 Every public name of ``pogs_tpu`` but ``SolverState`` (the JAX loop-state
 pytree; the port's loop returns a dict) is a public name of
-``pogs_tpu_torch``, and importing the port loads neither JAX nor the JAX
-package.  Every entry point, given numpy inputs and no ``device``, puts its
+``pogs_tpu_torch``, every submodule of ``pogs_tpu`` has its counterpart in
+the port with the same public names (the exceptions listed with their
+reasons), and importing the port loads neither JAX nor the JAX package.  Every entry point, given numpy inputs and no ``device``, puts its
 work on the CUDA device: where torch has no CUDA (this CPU machine) each
 one raises torch's "not compiled with CUDA" error before it returns a
 result, instead of solving on the CPU.  The scan skips on a machine with a
 card, where the same calls would solve.
 """
 
+import importlib
 import inspect
 import os
+import pkgutil
+import re
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -39,6 +44,58 @@ def test_public_names_match_the_jax_package():
     assert set(pogs_tpu.__all__) - set(P.__all__) == {"SolverState"}
     for name in P.__all__:
         assert hasattr(P, name), name
+
+
+# Public names of a JAX submodule that its counterpart lacks, each with the
+# reason.
+SUBMODULE_EXCEPTIONS = {
+    ("pogs_tpu.solver", "SolverState"): "a JAX loop-state pytree; the port's loops keep dicts",
+    ("pogs_tpu.solver.admm", "LoopState"): "a JAX loop-state pytree",
+    ("pogs_tpu.solver.hsde", "HsdeState"): "a JAX loop-state pytree",
+    ("pogs_tpu.solver.hsde", "cg_solve_normal"):
+        "the packed-vector CG the JAX tests call; the port's CG works on split "
+        "(x, y, τ) tuples (cg_solve_normal_split)",
+    ("pogs_tpu.ops", "fused_admm_eligible"): "the Pallas kernel's VMEM gate; K1's plan is admm_plan",
+    ("pogs_tpu.ops.fused_admm", "fused_admm_eligible"):
+        "the Pallas kernel's VMEM gate; K1's plan is admm_plan",
+    ("pogs_tpu.ops", "pad_to"): "the TPU lane padding of the Pallas kernels",
+    ("pogs_tpu.ops.fused_admm", "pad_to"): "the TPU lane padding of the Pallas kernels",
+    ("pogs_tpu.ops", "fused_hsde_eligible"):
+        "TPU-only in this form (with its VMEM budget); the port's gate of the same "
+        "name, without it, is ops.fused_hsde.fused_hsde_eligible",
+    ("pogs_tpu.ops.fused_admm_batch", "batched_chunk_for"):
+        "the Pallas kernel's VMEM lane budget; K2's are chunk_for and cluster_plan",
+}
+
+
+def _defined_public(mod) -> set:
+    """The public names a module defines itself: its ``__all__``, the
+    functions and classes whose ``__module__`` is the module, and the names
+    it assigns at top level."""
+    src = inspect.getsource(mod)
+    names = set(getattr(mod, "__all__", ()))
+    for name in dir(mod):
+        val = getattr(mod, name)
+        if name.startswith("_") or isinstance(val, types.ModuleType):
+            continue
+        if inspect.isclass(val) or inspect.isfunction(val):
+            if val.__module__ == mod.__name__:
+                names.add(name)
+        elif re.search(rf"^{re.escape(name)}\s*(:[^=\n]*)?=", src, re.M):
+            names.add(name)
+    return names
+
+
+def test_every_submodule_has_its_public_names():
+    missing = []
+    for info in pkgutil.walk_packages(pogs_tpu.__path__, "pogs_tpu."):
+        jax_mod = importlib.import_module(info.name)
+        port = importlib.import_module("pogs_tpu_torch" + info.name[len("pogs_tpu"):])
+        missing += [(info.name, n) for n in sorted(_defined_public(jax_mod))
+                    if not hasattr(port, n)]
+    assert set(missing) == set(SUBMODULE_EXCEPTIONS), (
+        sorted(set(missing) - set(SUBMODULE_EXCEPTIONS)),
+        sorted(set(SUBMODULE_EXCEPTIONS) - set(missing)))
 
 
 ALIASES = ["kAbs", "kExp", "kHuber", "kIdentity", "kIndBox01", "kIndEq0", "kIndGe0",

@@ -517,6 +517,319 @@ def case_sparse_graph(ctx):
             "x": (_np(ref.x), _np(sh.x))}
 
 
+# -- the column plan of the cone paths, QPs on a sharded A, checkpoints --------
+
+def portfolio_small():
+    """``benchmarks/problems.py``'s portfolio QP at 32 assets (A 34×32)."""
+    from benchmarks.problems import portfolio
+    return portfolio(n_assets=32, n_factors=8, seed=3)
+
+
+def std_form_lp(m=24, n=64, seed=5):
+    """A standard-form LP in its K_x form, min c'x s.t. A x = b, x ∈ K_x:
+    K_y = ZERO on the m rows, K_x NON_NEG but for an SOC over x[28:37],
+    which spans the column shards' boundary at 32 on 2 and 4 ranks."""
+    from pogs_tpu_torch.types import Cone, ConeConstraint
+
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((m, n))
+    x0 = rng.random(n) + 0.1
+    x0[28] = 3.0  # inside the SOC: ‖x0[29:37]‖ < 3
+    b = A @ x0
+    c = rng.random(n) + 0.5
+    Kx = [ConeConstraint(Cone.NON_NEG, range(0, 28)), ConeConstraint(Cone.SOC, range(28, 37)),
+          ConeConstraint(Cone.NON_NEG, range(37, n))]
+    Ky = [ConeConstraint(Cone.ZERO, range(m))]
+    return A, b, c, Kx, Ky
+
+
+def _cone_pair(ctx, A, b, c, shard, st, P=None, **kw):
+    """The single-device and the sharded ConeSolver solve of one problem
+    (``kw`` to both solvers): status, iterations, x, y, ν and optval."""
+    from pogs_tpu_torch.solver.cone import ConeSolver
+
+    ref = ConeSolver(A, settings=st, device="cpu", **kw).solve(b, c, P=P)
+    sh = ConeSolver(shard(A, ctx.mesh), settings=st, **kw).solve(b, c, P=P)
+    return {"status": (int(ref.status), int(sh.status)),
+            "iters": (int(ref.final_iter), int(sh.final_iter)),
+            "x": (_np(ref.x), _np(sh.x)), "y": (_np(ref.y), _np(sh.y)),
+            "nu": (_np(ref.nu), _np(sh.nu)), "optval": (float(ref.optval), float(sh.optval))}
+
+
+def case_col_cone_soc(ctx):
+    """The SOC ball on the column plan (a tall A: its Gram gathers A once),
+    f32 and f64, through the HSDE path."""
+    from pogs_tpu_torch.parallel.mesh import shard_matrix_cols
+    from pogs_tpu_torch.types import Cone, ConeConstraint, SolverSettings
+
+    A, b, c, expect = soc_ball()
+    Ky = [ConeConstraint(Cone.SOC, range(A.shape[0]))]
+    out = {"expect": expect}
+    for dt, tol in ((np.float32, 1e-5), (np.float64, 1e-9)):
+        out[np.dtype(dt).name] = _cone_pair(ctx, A.astype(dt), b, c, shard_matrix_cols,
+                                            SolverSettings(abs_tol=tol, rel_tol=tol), Ky=Ky)
+    return out
+
+
+def case_col_cone_multi(ctx):
+    """SOC and exponential segments on the column plan: K_x split with the
+    columns against the whole set (projection, dual projection, the
+    averaging hook); the HSDE solve of those cones over K_y on a tall A
+    (100 iterations) and the graph-form cone path with them over K_x on a
+    wide A (60 iterations), at trajectory level: the exponential
+    projection is the eager loop's slowest part on the CPU."""
+    import torch
+    from pogs_tpu_torch.cones.sets import ConeSet, ShardedConeSet
+    from pogs_tpu_torch.parallel.mesh import shard_matrix_cols
+    from pogs_tpu_torch.types import Cone, ConeConstraint, SolverSettings
+
+    rng = np.random.default_rng(4)
+    n = 24
+    # On 2 ranks the exponential cone 11-13 spans the boundary at 12; on 4
+    # (boundaries 6, 12, 18) so do the SOCs 3-7 and 17-23.
+    cones = [ConeConstraint(Cone.NON_NEG, range(0, 3)), ConeConstraint(Cone.SOC, range(3, 8)),
+             ConeConstraint(Cone.EXP_PRIMAL, range(8, 11)),
+             ConeConstraint(Cone.EXP_PRIMAL, range(11, 14)), ConeConstraint(Cone.SOC, range(14, 17)),
+             ConeConstraint(Cone.SOC, range(17, 24))]
+    whole_set = ConeSet(cones, n)
+    W = rng.standard_normal((10, n))
+    op = shard_matrix_cols(W, ctx.mesh, dtype=torch.float64)
+    sharded = ShardedConeSet(whole_set, op)
+    v = torch.as_tensor(rng.standard_normal(n))
+    w = torch.as_tensor(rng.random(n) + 0.5)
+    out = {"proj": (_np(whole_set.project(v)), _np(op.gather(sharded.project(op.local(v))))),
+           "dual": (_np(whole_set.dual().project(v)),
+                    _np(op.gather(sharded.dual().project(op.local(v))))),
+           "avg": (_np(whole_set.constrain_average(w)),
+                   _np(op.gather(sharded.constrain_average(op.local(w)))))}
+    # The HSDE path: the cones over K_y of a tall A, on the column plan.
+    A = rng.standard_normal((n, 8))
+    x0 = rng.standard_normal(8)
+    s0 = np.asarray(whole_set.project(torch.as_tensor(rng.standard_normal(n)))) + 0.0
+    s0[0:3] += 1.0
+    s0[3] += 2.0
+    b = A @ x0 + s0
+    c = -A.T @ np.asarray(whole_set.dual().project(torch.as_tensor(rng.standard_normal(n))))
+    out["hsde"] = _cone_pair(ctx, A, b, c, shard_matrix_cols,
+                             SolverSettings(abs_tol=0.0, rel_tol=0.0, max_iter=100), Ky=cones)
+    # The graph-form path: the cones over K_x of a wide A (A x = b).
+    xg = np.asarray(whole_set.project(torch.as_tensor(rng.standard_normal(n)))) + 0.0
+    xg[0:3] += 1.0
+    Kz = [ConeConstraint(Cone.ZERO, range(10))]
+    out["graph"] = _cone_pair(ctx, W, W @ xg, rng.random(n), shard_matrix_cols,
+                              SolverSettings(abs_tol=1e-6, rel_tol=1e-6, max_iter=60),
+                              Kx=cones, Ky=Kz)
+    return out
+
+
+def case_hsde_lp(ctx):
+    """Inequality LPs through the HSDE path, f64: a wide one (12×30) on
+    each plan, SMW by Woodbury through the reduced 12×12 Gram on the
+    column plan and through the gathered one on the row plan; and
+    ``cone_lp_polish``'s tall one (64×16) on the column plan, whose
+    interior-point burst runs whole on every rank on the gathered A."""
+    from pogs_tpu_torch.parallel.mesh import shard_matrix, shard_matrix_cols
+    from pogs_tpu_torch.types import Cone, ConeConstraint, SolverSettings
+
+    rng = np.random.default_rng(2)
+    A = rng.standard_normal((12, 30))
+    b = A @ rng.standard_normal(30) + rng.random(12) + 0.1
+    c = -A.T @ (rng.random(12) + 0.1)
+    Ky = [ConeConstraint(Cone.NON_NEG, range(12))]
+    st = SolverSettings(abs_tol=1e-8, rel_tol=1e-8, max_iter=3000)
+    out = {plan: _cone_pair(ctx, A, b, c, shard, st, Ky=Ky)
+           for plan, shard in (("rows", shard_matrix), ("cols", shard_matrix_cols))}
+    rng = np.random.default_rng(31)
+    A = rng.standard_normal((64, 16))
+    b = A @ rng.standard_normal(16) + np.abs(rng.standard_normal(64))
+    c = -A.T @ np.abs(rng.standard_normal(64))
+    out["polish_cols"] = _cone_pair(
+        ctx, A, b, c, shard_matrix_cols, SolverSettings(abs_tol=1e-9, rel_tol=1e-9, max_iter=2000),
+        Ky=[ConeConstraint(Cone.NON_NEG, range(64))])
+    return out
+
+
+def case_col_cone_lp(ctx):
+    """The 24×64 standard-form LP (K_x = NON_NEG with an SOC across the
+    column shards) through the graph-form cone path on the column plan that
+    ``auto_shard`` picks, to tolerance, f64."""
+    from pogs_tpu_torch.parallel.mesh import auto_shard
+    from pogs_tpu_torch.types import SolverSettings
+
+    A, b, c, Kx, Ky = std_form_lp()
+    out = _cone_pair(ctx, A, b, c, auto_shard, SolverSettings(abs_tol=1e-6, rel_tol=1e-6),
+                     Kx=Kx, Ky=Ky)
+    out["plan"] = auto_shard(A, ctx.mesh).plan
+    return out
+
+
+def case_hsde_p(ctx):
+    """``hsde_solve`` with a dense P on the row and the column plan, tall
+    and wide through SMW (60 iterations), tall through cg (20), against
+    the single-device loop at trajectory level (tolerance 0, f64): the
+    whole w.  (The inner CG's tolerance follows the fixed-point residual:
+    in the first ten DR iterations it stops loosely enough for the order
+    of its sums to show at 1e-8, as on the row plan without P.)"""
+    import torch
+    from pogs_tpu_torch.cones.sets import ConeSet
+    from pogs_tpu_torch.linalg.matrix import part, whole
+    from pogs_tpu_torch.parallel.mesh import shard_matrix, shard_matrix_cols
+    from pogs_tpu_torch.solver.hsde import hsde_solve
+    from pogs_tpu_torch.types import Cone, ConeConstraint
+
+    rng = np.random.default_rng(17)
+    out = {}
+    for shape in ((20, 12), (12, 20)):
+        m, n = shape
+        A = rng.standard_normal(shape)
+        b = rng.standard_normal(m) + 1.0
+        c = rng.standard_normal(n)
+        B = rng.standard_normal((n, n))
+        P = torch.as_tensor(B @ B.T / n)
+        Ky = ConeSet([ConeConstraint(Cone.NON_NEG, range(m))], m)
+        for strategy, iters in (("smw", 60), ("cg", 20)) if m > n else (("smw", 60),):
+            kw = {"abs_tol": 0.0, "rel_tol": 0.0, "max_iter": iters}
+            ref = hsde_solve(torch.as_tensor(A), torch.as_tensor(b), torch.as_tensor(c), Ky,
+                             P=P, strategy=strategy, **kw)
+            for plan, shard in (("rows", shard_matrix), ("cols", shard_matrix_cols)):
+                op = shard(A, ctx.mesh)
+                _, n_loc = op.local_shape
+                sh = hsde_solve(op, part(op, "m", torch.as_tensor(b)),
+                                part(op, "n", torch.as_tensor(c)), Ky, P=P, strategy=strategy,
+                                **kw)
+                w = sh["w"]
+                w_whole = torch.cat([whole(op, "n", w[:n_loc]), whole(op, "m", w[n_loc:-1]),
+                                     w[-1:]])
+                out[(shape, strategy, plan)] = {
+                    "status": (int(ref["status"]), int(sh["status"])),
+                    "iters": (int(ref["final_iter"]), int(sh["final_iter"])),
+                    "w": (_np(ref["w"]), _np(w_whole))}
+    return out
+
+
+QP_ROUTES = {"ipm": ("socp", True), "socp": ("socp", False), "admm": ("admm", True),
+             "admm_nopolish": ("admm", False)}
+
+
+def case_qp_routes(ctx):
+    """The portfolio QP (34×32) on the row and the column plan through each
+    QP route, f64, against the single-device route; and with P's diagonal
+    alone (the diagonal forms of the epigraph factor and the x-prox)
+    through the ``socp`` and ``admm`` routes."""
+    from pogs_tpu_torch.parallel.mesh import shard_matrix, shard_matrix_cols
+    from pogs_tpu_torch.api.cone import dims_to_cones
+    from pogs_tpu_torch.types import SolverSettings
+
+    q = portfolio_small()
+    Ky = dims_to_cones(q["dims"])
+    out = {}
+    for route, (via, polish) in QP_ROUTES.items():
+        st = SolverSettings(abs_tol=1e-7, rel_tol=1e-7, max_iter=20000, polish=polish)
+        for plan, shard in (("rows", shard_matrix), ("cols", shard_matrix_cols)):
+            out[(route, plan)] = _cone_pair(ctx, q["A"], q["b"], q["c"], shard, st, P=q["P"],
+                                            Ky=Ky, qp_via=via)
+            if route in ("socp", "admm"):
+                out[(route + "_diag", plan)] = _cone_pair(
+                    ctx, q["A"], q["b"], q["c"], shard, st, P=np.diag(q["P"]).copy(), Ky=Ky,
+                    qp_via=via)
+    return out
+
+
+def case_direct_raises(ctx):
+    """The direct strategy (and its inverse variant) refuses a sharded A on
+    either plan."""
+    from pogs_tpu_torch.parallel.mesh import shard_matrix, shard_matrix_cols
+    from pogs_tpu_torch.solver.cone import ConeSolver
+    from pogs_tpu_torch.types import Cone, ConeConstraint
+
+    A, b, c, _ = soc_ball()
+    Ky = [ConeConstraint(Cone.SOC, range(A.shape[0]))]
+    out = {}
+    for plan, shard in (("rows", shard_matrix), ("cols", shard_matrix_cols)):
+        for strategy in ("direct", "inverse"):
+            try:
+                ConeSolver(shard(A, ctx.mesh), Ky=Ky, strategy=strategy).solve(b, c)
+                out[(plan, strategy)] = None
+            except ValueError as exc:
+                out[(plan, strategy)] = str(exc)
+    return out
+
+
+CKPT_ITERS = 40
+
+
+def ckpt_problem():
+    """The checkpoint cases' lasso (f64) and settings: a first solve cut at
+    ``CKPT_ITERS`` iterations, then a resumed one to tolerance."""
+    A, b, lam = lasso(64, 24, 19, np.float64)
+    return A, b, lam
+
+
+def _ckpt_solver(A, b, lam, mesh=None, shard=None, max_iter=None):
+    from pogs_tpu_torch.solver.graph import GraphFormSolver
+    from pogs_tpu_torch.types import Function, FunctionVector, SolverSettings
+
+    st = SolverSettings(abs_tol=1e-8, rel_tol=1e-8, use_fused=False,
+                        **({} if max_iter is None else {"max_iter": max_iter}))
+    f = FunctionVector(Function.SQUARE, A.shape[0], b=b)
+    g = FunctionVector(Function.ABS, A.shape[1], c=lam)
+    solver = (GraphFormSolver(A, settings=st, device="cpu") if shard is None
+              else GraphFormSolver(shard(A, mesh), settings=st))
+    return solver, f, g
+
+
+def _res(r):
+    return {"status": int(r.status), "iters": int(r.final_iter), "x": _np(r.x),
+            "optval": float(r.optval)}
+
+
+def case_checkpoint(ctx):
+    """Checkpoints across a mesh and one device, both plans, f64:
+
+    * ``to_one``: a sharded solve cut at ``CKPT_ITERS`` iterations is saved
+      (rank 0 writes) and resumed in a fresh single-device solver; the
+      sharded solver's own continuation is the uninterrupted solve;
+    * ``to_mesh``: the reverse, a single-device checkpoint resumed in a
+      fresh sharded solver, against the single-device continuation;
+    * ``from_jax``: a checkpoint the JAX package wrote on one device (the
+      parent's, ``ctx.data["jax_ckpt"]``) resumed in a sharded solver.
+
+    The file of ``to_one`` stays for the parent to resume in the JAX
+    package."""
+    import torch
+    from pogs_tpu_torch.parallel.mesh import all_reduce, shard_matrix, shard_matrix_cols
+
+    A, b, lam = ckpt_problem()
+    out = {}
+    for plan, shard in (("rows", shard_matrix), ("cols", shard_matrix_cols)):
+        path = os.path.join(ctx.tmp, f"ckpt_{plan}_{ctx.world}.npz")
+        sh, f, g = _ckpt_solver(A, b, lam, ctx.mesh, shard, max_iter=CKPT_ITERS)
+        cut = sh.solve(f, g)
+        sh.save_state(path)
+        one, _, _ = _ckpt_solver(A, b, lam)
+        resumed = one.load_state(path).solve(f, g)
+        cont = sh.solve(f, g, settings=one.settings)
+        out[(plan, "to_one")] = {"cut": _res(cut), "resumed": _res(resumed),
+                                 "uninterrupted": _res(cont), "path": path}
+        # The reverse: every rank runs the single-device solve, rank 0's
+        # file is the one read.
+        one, _, _ = _ckpt_solver(A, b, lam, max_iter=CKPT_ITERS)
+        one.solve(f, g)
+        path1 = os.path.join(ctx.tmp, f"ckpt1_{plan}_{ctx.world}.npz")
+        if ctx.rank == 0:
+            one.save_state(path1)
+        all_reduce(torch.zeros(1), None, "small")
+        sh, _, _ = _ckpt_solver(A, b, lam, ctx.mesh, shard)
+        resumed = sh.load_state(path1).solve(f, g)
+        cont = one.solve(f, g, settings=sh.settings)
+        out[(plan, "to_mesh")] = {"resumed": _res(resumed), "uninterrupted": _res(cont)}
+        jax_ckpt = ctx.data.get("jax_ckpt")
+        if jax_ckpt is not None:
+            sh, _, _ = _ckpt_solver(A, b, lam, ctx.mesh, shard)
+            out[(plan, "from_jax")] = _res(sh.load_state(jax_ckpt).solve(f, g))
+    return out
+
+
 def _per_rank(ctx, value):
     """Every rank's ``value`` (a number), as a list in rank order."""
     import torch
@@ -591,11 +904,16 @@ CASES = {name[len("case_"):]: fn for name, fn in globals().items() if name.start
 # -- the group ------------------------------------------------------------------
 
 class Ctx:
-    def __init__(self, rank, world, mesh):
+    """A rank's view: its rank, the world size, its 1-D ('rows',) mesh, a
+    directory every rank of the group sees (``tmp``) and the parent's
+    ``data``."""
+
+    def __init__(self, rank, world, mesh, tmp, data):
         self.rank, self.world, self.mesh = rank, world, mesh
+        self.tmp, self.data = tmp, data
 
 
-def _worker(rank, world, store_path, names, out_path, device):
+def _worker(rank, world, store_path, names, out_path, device, data):
     import torch
     import torch.distributed as dist
 
@@ -606,7 +924,8 @@ def _worker(rank, world, store_path, names, out_path, device):
                        backend="gloo", timeout=datetime.timedelta(seconds=GROUP_TIMEOUT_S))
     if device.startswith("cuda"):
         torch.cuda.set_device(torch.device(device))
-    ctx = Ctx(rank, world, M.make_mesh((world,), ("rows",), device=device))
+    ctx = Ctx(rank, world, M.make_mesh((world,), ("rows",), device=device),
+              os.path.dirname(store_path), data)
     results = {}
     for name in names:
         t0 = time.perf_counter()
@@ -622,20 +941,25 @@ def _worker(rank, world, store_path, names, out_path, device):
     dist.destroy_process_group()
 
 
-def run_group(world: int, names, device: str = "cpu") -> dict:
+def run_group(world: int, names, device: str = "cpu", data=None, tmp=None) -> dict:
     """Run the named cases in ``world`` spawned gloo ranks whose mesh holds
-    its tensors on ``device``; rank 0's results."""
+    its tensors on ``device``; rank 0's results.  ``data`` (plain values)
+    reaches every case as ``ctx.data``; ``tmp``, a directory, is
+    ``ctx.tmp`` (a temporary one by default), where cases may leave files
+    for the parent."""
     import multiprocessing as mp
 
     ctx = mp.get_context("spawn")
-    with tempfile.TemporaryDirectory() as tmp:
-        store = os.path.join(tmp, "store")
-        out = os.path.join(tmp, "results.pkl")
+    with tempfile.TemporaryDirectory() as scratch:
+        tmp = tmp or scratch
+        store = os.path.join(tmp, f"store_{world}")
+        out = os.path.join(tmp, f"results_{world}.pkl")
         env = {"OMP_NUM_THREADS": "1", "MKL_NUM_THREADS": "1"}
         saved = {k: os.environ.get(k) for k in env}
         os.environ.update(env)
         try:
-            procs = [ctx.Process(target=_worker, args=(r, world, store, list(names), out, device))
+            procs = [ctx.Process(target=_worker,
+                                 args=(r, world, store, list(names), out, device, data or {}))
                      for r in range(world)]
             for p in procs:
                 p.start()
