@@ -60,6 +60,7 @@ from pogs_tpu_torch.solver.cone import epigraph_extension, epigraph_factor, smw_
 from pogs_tpu_torch.solver.hsde import hsde_solve
 from pogs_tpu_torch.solver.qp_polish import active_set_polish, row_kinds
 from pogs_tpu_torch.utils.precision import highest_precision
+from pogs_tpu_torch.utils.profiling import span
 from pogs_tpu_torch.parallel.mesh import all_reduce, split_bounds
 
 
@@ -201,93 +202,102 @@ def batched_graph_solve(
     Returns a dict of tensors: x (K, n), y (K, m), optval, iterations and
     status, each (K,).
     """
-    settings = settings or SolverSettings()
-    dev = resolve_device(A, _mesh_device(mesh, device))
-    A = _matrix(A, dev)
-    dt = A.dtype
-    m, n = A.shape
-    if g_c_batch is not None:
-        K = len(g_c_batch)
-    elif f_b_batch is not None:
-        K = len(f_b_batch)
-    else:
-        raise ValueError("provide at least one of g_c_batch / f_b_batch")
-    if f.n != m or g.n != n:
-        raise ValueError(f"f and g have lengths {f.n}, {g.n}, expected {m}, {n}")
+    with span("pogs.call"):
+        settings = settings or SolverSettings()
+        dev = resolve_device(A, _mesh_device(mesh, device))
+        A = _matrix(A, dev)
+        dt = A.dtype
+        m, n = A.shape
+        if g_c_batch is not None:
+            K = len(g_c_batch)
+        elif f_b_batch is not None:
+            K = len(f_b_batch)
+        else:
+            raise ValueError("provide at least one of g_c_batch / f_b_batch")
+        if f.n != m or g.n != n:
+            raise ValueError(f"f and g have lengths {f.n}, {g.n}, expected {m}, {n}")
 
-    c_arg, c_kind = _batch_arg(g_c_batch, K, n, dt, dev)
-    e_arg, e_kind = _batch_arg(g_e_batch, K, n, dt, dev)
-    fb_arg, fb_kind = _batch_arg(f_b_batch, K, m, dt, dev, per_lane_scalar_ok=False)
-    fused = _fused_batch_eligible(dt, dev, settings, c_kind, e_kind, fb_kind)
-    lo, hi = _lane_block(mesh, batch_axis, K)
-    if mesh is not None:
-        # This rank's lanes; the shared arguments stay as they are.
-        K_all, K = K, hi - lo
-        c_arg = c_arg if c_kind == "shared" else c_arg[lo:hi]
-        e_arg = e_arg if e_kind == "shared" else e_arg[lo:hi]
-        fb_arg = fb_arg if fb_kind == "shared" else fb_arg[lo:hi]
-        out = batched_graph_solve(A, f, g, c_arg if c_kind != "shared" else None,
-                                  e_arg if e_kind != "shared" else None,
-                                  fb_arg if fb_kind != "shared" else None,
-                                  settings=settings, device=dev)
-        return _gather_lanes(mesh, batch_axis, out, K_all, lo)
+        c_arg, c_kind = _batch_arg(g_c_batch, K, n, dt, dev)
+        e_arg, e_kind = _batch_arg(g_e_batch, K, n, dt, dev)
+        fb_arg, fb_kind = _batch_arg(f_b_batch, K, m, dt, dev, per_lane_scalar_ok=False)
+        fused = _fused_batch_eligible(dt, dev, settings, c_kind, e_kind, fb_kind)
+        lo, hi = _lane_block(mesh, batch_axis, K)
+        if mesh is not None:
+            # This rank's lanes; the shared arguments stay as they are.
+            K_all, K = K, hi - lo
+            c_arg = c_arg if c_kind == "shared" else c_arg[lo:hi]
+            e_arg = e_arg if e_kind == "shared" else e_arg[lo:hi]
+            fb_arg = fb_arg if fb_kind == "shared" else fb_arg[lo:hi]
+            out = batched_graph_solve(A, f, g, c_arg if c_kind != "shared" else None,
+                                      e_arg if e_kind != "shared" else None,
+                                      fb_arg if fb_kind != "shared" else None,
+                                      settings=settings, device=dev)
+            return _gather_lanes(mesh, batch_axis, out, K_all, lo)
 
-    with highest_precision():
-        eq = equilibrate(A)
-        norm_A = norm2_est(eq.A)
-        factor = DirectProjector("inverse").init(eq.A, s=1.0)
-        fa, fb, fc, fd, fe = _params(f, dt, dev)
-        ga, gb, gc, gd, ge = _params(g, dt, dev)
-        rho0 = torch.as_tensor(settings.rho, dtype=dt, device=dev)
-        if fused:
-            # scale_f and scale_g leave b and c alone, so the lanes' raw c
-            # and b feed the kernel.
-            f_s = scale_f(_fv(f.h, (fa, fb, fc, fd, fe)), eq.d)
-            g_s = scale_g(_fv(g.h, (ga, gb, gc, gd, ge)), eq.e)
-            out = fused_batched_lasso_sweep(
-                eq.A, factor["op"], norm_A, f.h, tuple(f_s.params), g.h,
-                tuple(g_s.params), _lanes(c_arg, c_kind, gc, K, n), settings, rho0,
-                fb_batch=fb_arg if fb_kind == "lane_vec" else None)
-            return {
-                "x": out["x12"] * eq.e[None, :],
-                "y": out["y12"] / eq.d[None, :],
-                "optval": out["optval"],
-                "iterations": out["final_iter"],
-                "status": out["status"],
-            }
+        with highest_precision():
+            with span("pogs.init"):
+                with span("pogs.init.equilibrate"):
+                    eq = equilibrate(A)
+                with span("pogs.init.norm_est"):
+                    norm_A = norm2_est(eq.A)
+                with span("pogs.init.factor"):
+                    factor = DirectProjector("inverse").init(eq.A, s=1.0)
+            # The host work before the lanes run: on the batched kernel's path to
+            # its wrapper's return, which on a CUDA tensor is the launch.
+            with span("pogs.prepare"):
+                fa, fb, fc, fd, fe = _params(f, dt, dev)
+                ga, gb, gc, gd, ge = _params(g, dt, dev)
+                rho0 = torch.as_tensor(settings.rho, dtype=dt, device=dev)
+                if fused:
+                    # scale_f and scale_g leave b and c alone, so the lanes' raw c
+                    # and b feed the kernel.
+                    f_s = scale_f(_fv(f.h, (fa, fb, fc, fd, fe)), eq.d)
+                    g_s = scale_g(_fv(g.h, (ga, gb, gc, gd, ge)), eq.e)
+                    out = fused_batched_lasso_sweep(
+                        eq.A, factor["op"], norm_A, f.h, tuple(f_s.params), g.h,
+                        tuple(g_s.params), _lanes(c_arg, c_kind, gc, K, n), settings, rho0,
+                        fb_batch=fb_arg if fb_kind == "lane_vec" else None)
+            if fused:
+                return {
+                    "x": out["x12"] * eq.e[None, :],
+                    "y": out["y12"] / eq.d[None, :],
+                    "optval": out["optval"],
+                    "iterations": out["final_iter"],
+                    "status": out["status"],
+                }
 
-        cs = _lanes(c_arg, c_kind, gc, K, n)
-        es = _lanes(e_arg, e_kind, ge, K, n)
-        fbs = _lanes(fb_arg, fb_kind, fb, K, m)
-        kernel = _use_fused(dt, dev, settings, "inverse")
-        At = eq.A.T.contiguous() if kernel else None
-        projector = DirectProjector("inverse")
-        z0 = torch.zeros(m + n, dtype=dt, device=dev)
-        lanes = []
-        for k in range(K):
-            f_s = scale_f(_fv(f.h, (fa, fbs[k], fc, fd, fe)), eq.d)
-            g_s = scale_g(_fv(g.h, (ga, gb, cs[k], gd, es[k])), eq.e)
-            if kernel:
-                out = fused_admm_loop(eq.A, factor["op"], norm_A, f.h, tuple(f_s.params),
-                                      g.h, tuple(g_s.params), settings, z0, z0, rho0,
-                                      At=At)
-            else:
-                out = admm_loop(
-                    eq.A, norm_A, eq.d, eq.e,
-                    lambda x_in, y_in, rho, f_s=f_s, g_s=g_s: (
-                        prox_eval(g_s, x_in, rho), prox_eval(f_s, y_in, rho)),
-                    lambda x12, y12, f_s=f_s, g_s=g_s: (
-                        func_eval(f_s, y12) + func_eval(g_s, x12)),
-                    lambda px, py, tol, xw: projector.project(eq.A, factor, px, py),
-                    settings, z0, z0, rho0)
-            lanes.append(out)
-    return {
-        "x": torch.stack([o["x12"] for o in lanes]) * eq.e[None, :],
-        "y": torch.stack([o["y12"] for o in lanes]) / eq.d[None, :],
-        "optval": torch.stack([o["optval"] for o in lanes]),
-        "iterations": torch.stack([o["final_iter"] for o in lanes]),
-        "status": torch.stack([o["status"] for o in lanes]),
-    }
+            cs = _lanes(c_arg, c_kind, gc, K, n)
+            es = _lanes(e_arg, e_kind, ge, K, n)
+            fbs = _lanes(fb_arg, fb_kind, fb, K, m)
+            kernel = _use_fused(dt, dev, settings, "inverse")
+            At = eq.A.T.contiguous() if kernel else None
+            projector = DirectProjector("inverse")
+            z0 = torch.zeros(m + n, dtype=dt, device=dev)
+            lanes = []
+            for k in range(K):
+                f_s = scale_f(_fv(f.h, (fa, fbs[k], fc, fd, fe)), eq.d)
+                g_s = scale_g(_fv(g.h, (ga, gb, cs[k], gd, es[k])), eq.e)
+                if kernel:
+                    out = fused_admm_loop(eq.A, factor["op"], norm_A, f.h, tuple(f_s.params),
+                                          g.h, tuple(g_s.params), settings, z0, z0, rho0,
+                                          At=At)
+                else:
+                    out = admm_loop(
+                        eq.A, norm_A, eq.d, eq.e,
+                        lambda x_in, y_in, rho, f_s=f_s, g_s=g_s: (
+                            prox_eval(g_s, x_in, rho), prox_eval(f_s, y_in, rho)),
+                        lambda x12, y12, f_s=f_s, g_s=g_s: (
+                            func_eval(f_s, y12) + func_eval(g_s, x12)),
+                        lambda px, py, tol, xw: projector.project(eq.A, factor, px, py),
+                        settings, z0, z0, rho0)
+                lanes.append(out)
+        return {
+            "x": torch.stack([o["x12"] for o in lanes]) * eq.e[None, :],
+            "y": torch.stack([o["y12"] for o in lanes]) / eq.d[None, :],
+            "optval": torch.stack([o["optval"] for o in lanes]),
+            "iterations": torch.stack([o["final_iter"] for o in lanes]),
+            "status": torch.stack([o["status"] for o in lanes]),
+        }
 
 
 def warm_path_graph_solve(
@@ -369,19 +379,20 @@ def solve_lasso_path(
     ``mesh``'s ``batch`` axis when given), or warm-started one after
     another (``warm=True``, ``warm_path_graph_solve``; order the λ values
     large to small), which runs on one device and takes no mesh."""
-    if warm and mesh is not None:
-        raise ValueError(
-            "warm=True runs a sequential path on one device; mesh "
-            "sharding applies to the independent (warm=False) batch")
-    dev = resolve_device(A, _mesh_device(mesh, device))
-    A = _matrix(A, dev)
-    m, n = A.shape
-    b = torch.as_tensor(b).reshape(-1)
-    f = FunctionVector(Function.SQUARE, m, b=b, dtype=A.dtype)
-    g = FunctionVector(Function.ABS, n, dtype=A.dtype)
-    if warm:
-        return warm_path_graph_solve(A, f, g, lambdas, settings=settings, device=dev)
-    return batched_graph_solve(A, f, g, lambdas, settings=settings, mesh=mesh, device=dev)
+    with span("pogs.call"):
+        if warm and mesh is not None:
+            raise ValueError(
+                "warm=True runs a sequential path on one device; mesh "
+                "sharding applies to the independent (warm=False) batch")
+        dev = resolve_device(A, _mesh_device(mesh, device))
+        A = _matrix(A, dev)
+        m, n = A.shape
+        b = torch.as_tensor(b).reshape(-1)
+        f = FunctionVector(Function.SQUARE, m, b=b, dtype=A.dtype)
+        g = FunctionVector(Function.ABS, n, dtype=A.dtype)
+        if warm:
+            return warm_path_graph_solve(A, f, g, lambdas, settings=settings, device=dev)
+        return batched_graph_solve(A, f, g, lambdas, settings=settings, mesh=mesh, device=dev)
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,8 @@ from typing import Any, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from pogs_tpu_torch.utils.profiling import span
+
 
 class Function(enum.IntEnum):
     """Scalar function library h(x). Values match the reference C enum."""
@@ -128,40 +130,41 @@ class FunctionVector:
         e: Any = 0.0,
         dtype: Any = None,
     ):
-        h_arr = np.asarray(h, dtype=np.int32)
-        if h_arr.ndim == 0:
-            if n is None:
-                raise ValueError("scalar h requires explicit n")
-            h_arr = np.full((n,), int(h_arr), dtype=np.int32)
-        if n is not None and h_arr.shape[0] != n:
-            raise ValueError(f"h has length {h_arr.shape[0]}, expected {n}")
-        self.h = h_arr
-        self.n = h_arr.shape[0]
-        tdt = torch.float64 if dtype is None else _torch_dtype(dtype)
+        with span("pogs.functions"):
+            h_arr = np.asarray(h, dtype=np.int32)
+            if h_arr.ndim == 0:
+                if n is None:
+                    raise ValueError("scalar h requires explicit n")
+                h_arr = np.full((n,), int(h_arr), dtype=np.int32)
+            if n is not None and h_arr.shape[0] != n:
+                raise ValueError(f"h has length {h_arr.shape[0]}, expected {n}")
+            self.h = h_arr
+            self.n = h_arr.shape[0]
+            tdt = torch.float64 if dtype is None else _torch_dtype(dtype)
 
-        def _vec(v):
-            if isinstance(v, torch.Tensor):
-                if v.ndim == 0:
-                    raise ValueError("scalar tensor params not supported; pass float")
-                if v.shape[0] != self.n:
+            def _vec(v):
+                if isinstance(v, torch.Tensor):
+                    if v.ndim == 0:
+                        raise ValueError("scalar tensor params not supported; pass float")
+                    if v.shape[0] != self.n:
+                        raise ValueError(
+                            f"parameter length {v.shape[0]} != objective length {self.n}"
+                        )
+                    return v
+                arr = np.asarray(v, dtype=np.float64)
+                if arr.ndim == 0:
+                    arr = np.full((self.n,), arr)
+                elif arr.shape[0] != self.n:
                     raise ValueError(
-                        f"parameter length {v.shape[0]} != objective length {self.n}"
+                        f"parameter length {arr.shape[0]} != objective length {self.n}"
                     )
-                return v
-            arr = np.asarray(v, dtype=np.float64)
-            if arr.ndim == 0:
-                arr = np.full((self.n,), arr)
-            elif arr.shape[0] != self.n:
-                raise ValueError(
-                    f"parameter length {arr.shape[0]} != objective length {self.n}"
-                )
-            return torch.as_tensor(arr, dtype=tdt)
+                return torch.as_tensor(arr, dtype=tdt)
 
-        self.a = _vec(a)
-        self.b = _vec(b)
-        self.c = torch.clamp(_vec(c), min=0)
-        self.d = _vec(d)
-        self.e = torch.clamp(_vec(e), min=0)
+            self.a = _vec(a)
+            self.b = _vec(b)
+            self.c = torch.clamp(_vec(c), min=0)
+            self.d = _vec(d)
+            self.e = torch.clamp(_vec(e), min=0)
 
     @property
     def params(self):

@@ -1,9 +1,12 @@
-"""Tracing and timing: a profiler trace, a phase timer and a device timer.
+"""Tracing and timing: a profiler trace, program spans, a phase timer and a
+device timer.
 
 Counterpart of ``pogs_tpu/utils/profiling.py``:
 
   * :func:`trace` — a context manager around ``torch.profiler`` that writes
     a Chrome / Perfetto trace of everything inside it;
+  * :func:`span` — a named range of the program (``SPANS``) in whatever
+    ``torch.profiler`` session is recording, and nothing when none is;
   * :func:`busy_time` — the union of the CUDA kernels' time inside a named
     window of such a trace, and so the card's idle share there;
   * :class:`PhaseTimer` — host wall-clock time per named phase, with the
@@ -22,6 +25,32 @@ import time
 from typing import Callable, Dict
 
 import torch
+import torch.profiler
+
+# The program's spans, each opened by :func:`span` in the function that does
+# the work.  ``pogs.call``: a public entry, from its start to its return (a
+# nested entry opens its own; the outermost holds the request).
+# ``pogs.functions``: an objective's parameters made into tensors
+# (``FunctionVector``).  ``pogs.init``: the work paid once per matrix, and
+# inside it, in this order, ``pogs.init.equilibrate``, ``pogs.init.norm_est``
+# and ``pogs.init.factor``.  ``pogs.prepare``: the solve's host work before
+# its loop: the scaled prox parameters, the starting point and the solve
+# kernel's wrapper up to its launch.
+SPANS = ("pogs.call", "pogs.functions", "pogs.init", "pogs.init.equilibrate",
+         "pogs.init.norm_est", "pogs.init.factor", "pogs.prepare")
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager for the program's span ``name`` (one of ``SPANS``):
+    while a ``torch.profiler`` session records (``trace`` among them), a
+    ``record_function`` range on the profiler's clock, the clock of the
+    device's operations and the host's launches; otherwise a shared null
+    context, so a span costs one flag check when nothing records."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -29,8 +58,9 @@ def trace(log_dir: str, create_perfetto_link: bool = False):
     """Profile the block with ``torch.profiler`` and write its trace, in
     the Chrome trace format that Perfetto and ``chrome://tracing`` open,
     into ``log_dir`` (created if missing).  CPU activity is always traced,
-    CUDA activity (kernels, copies) when torch sees a CUDA device.  Yields
-    the profiler; its ``trace_path`` is the file written on exit.
+    CUDA activity (kernels, copies) when torch sees a CUDA device, and the
+    program's spans (``SPANS``) with them.  Yields the profiler; its
+    ``trace_path`` is the file written on exit.
     ``create_perfetto_link`` is accepted for the JAX package's signature
     and ignored: open the file in Perfetto instead."""
     from torch.profiler import ProfilerActivity, profile
