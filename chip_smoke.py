@@ -13,12 +13,15 @@ Phases, each printing one JSON line of its own:
   3. the solve kernel (K1) against its plain version (the eager loop) on the
      card, on the same scaled inputs from the port's init: tall bench lasso
      500x300, wide 300x500, logistic 200x100, nonneg LS with gap_stop,
-     max_iter=5, and the bench lasso in float64, each with its launch plan's
-     blocks and barriers per iteration; then K1's route table (lasso
+     max_iter=5, the bench lasso in float64, and the benchmark's lasso
+     10000x5000 on the one pass (the only case on it), each with its launch
+     plan's blocks, barriers per iteration and route, and its passes over A;
+     then K1's route table (lasso
      problems from 60x40 to 5000x2500, tall and wide, f32 and f64, on 1 to
      132 blocks, and the plan's grid without the shared side; logistic
-     2000x1000 with and without it; a fixed count of iterations at
-     tolerance 0, per iteration run);
+     2000x1000 with and without it; tall f32 lasso problems from 5000x2500
+     to 20000x2500 on the one pass and on the plain products; a fixed count of
+     iterations at tolerance 0, per iteration run);
   4. the main path: pogs_tpu_torch.solve_lasso on the bench problem (f32,
      cuda), which must succeed, pass the lasso KKT check, and launch K1
      exactly once per solve;
@@ -403,6 +406,11 @@ def scaled_inputs(torch, P, A, f, g, dtype):
     return st, f_s, g_s
 
 
+# The kernel-vs-plain case on the one-pass route: the benchmark's lasso
+# shape, built like the bench case.
+ONE_PASS_CASE = "lasso_10000x5000_f32"
+
+
 def phase_kernel_vs_plain(torch, P):
     from pogs_tpu_torch.ops.fused_admm import fused_admm_loop, fused_admm_loop_ref
 
@@ -415,6 +423,7 @@ def phase_kernel_vs_plain(torch, P):
     lab = np.sign(rng.standard_normal(200))
     A_n = rng.standard_normal((120, 80)).astype(np.float32)
     b_n = rng.standard_normal(120).astype(np.float32)
+    A_o, b_o, lam_o = make_lasso(10000, 5000)
     S = P.SolverSettings
     cases = [
         ("lasso_500x300_f32", A_b, P.FunctionVector(F.SQUARE, 500, b=b_b),
@@ -429,6 +438,8 @@ def phase_kernel_vs_plain(torch, P):
          P.FunctionVector(F.ABS, 300, c=lam_b), S(max_iter=5), torch.float32),
         ("lasso_500x300_f64", A_b.astype(np.float64), P.FunctionVector(F.SQUARE, 500, b=b_b),
          P.FunctionVector(F.ABS, 300, c=lam_b), S(abs_tol=1e-8, rel_tol=1e-8), torch.float64),
+        (ONE_PASS_CASE, A_o, P.FunctionVector(F.SQUARE, 10000, b=b_o),
+         P.FunctionVector(F.ABS, 5000, c=lam_o), S(**BENCH_TOL), torch.float32),
     ]
     summary = None
     for name, A, f, g, st, dt in cases:
@@ -443,28 +454,31 @@ def phase_kernel_vs_plain(torch, P):
         it_k, it_p = int(out_k["final_iter"]), int(out_p["final_iter"])
         s_k, s_p = int(out_k["status"]), int(out_p["status"])
         ov_k, ov_p = float(out_k["optval"]), float(out_p["optval"])
-        errs = {}
+        errs, lims = {}, {}
         ok = s_k == s_p and abs(it_k - it_p) <= 2
         ok = ok and abs(ov_k - ov_p) <= 1e-4 * max(abs(ov_p), 1e-12)
         for key in ("x12", "z"):
             ref = out_p[key]
             err = float(torch.max(torch.abs(out_k[key] - ref)))
             lim = 5e-5 * max(1.0, float(torch.max(torch.abs(ref))))
-            errs[key] = err
+            errs[key], lims[key] = err, lim
             ok = ok and err <= lim
+        plan = k1_plan(torch, args)
+        ok = ok and plan["one_pass"] == (name == ONE_PASS_CASE)
         ms = cuda_ms(torch, lambda: fused_admm_loop(*args, At=state["At"]), 10)
         plain_ms = cuda_ms(torch, lambda: fused_admm_loop_ref(*args), 2)
         dname = str(dt).replace("torch.", "")
         n_bytes, flops = solve_work(m, n, it_k + 1, int(s_k == 0), A.dtype.itemsize,
                                     lane_in=2 * (m + n), lane_out=6 * (m + n))
         bms, bby = bound_ms(n_bytes, flops, dname)
-        plan = k1_plan(torch, args)
         rec = {"phase": "kernel_vs_plain", "case": name, "shape": [m, n],
                "dtype": dname, "blocks": plan["blocks"], "shared_side": plan["shared_side"],
+               "one_pass": plan["one_pass"], "a_passes": int(out_k["a_passes"]),
+               "checks": int(out_k["checks"]),
                "barriers_per_iter": plan["barriers_per_iter"],
                "barriers_per_check": plan["barriers_per_check"], "status": [s_k, s_p],
                "iters": [it_k, it_p], "optval": [ov_k, ov_p],
-               "max_abs_err": errs, "ms": ms, "plain_ms": plain_ms,
+               "max_abs_err": errs, "err_limit": lims, "ms": ms, "plain_ms": plain_ms,
                "ms_per_iter": ms / max(it_k + 1, 1),
                "plain_ms_per_iter": plain_ms / max(it_p + 1, 1),
                "bound_ms": bms, "bound_by": bby, "ok": ok}
@@ -497,9 +511,9 @@ def k1_plan(torch, args):
                           args[5])
 
 
-def forced_k1(blocks=None, shared=None):
-    """K1's plan with its grid or its shared side forced (None: the plan's
-    own)."""
+def forced_k1(blocks=None, shared=None, one_pass=None):
+    """K1's plan with its grid, its shared side or its one-pass route
+    forced (None: the plan's own)."""
     from pogs_tpu_torch.ops import fused_admm as fa
 
     stack = contextlib.ExitStack()
@@ -507,6 +521,9 @@ def forced_k1(blocks=None, shared=None):
         stack.enter_context(patched(fa, "blocks_for", lambda m, n, sms: blocks))
     if shared is not None:
         stack.enter_context(patched(fa, "shared_side_for", lambda iterative: shared))
+    if one_pass is not None:
+        stack.enter_context(patched(fa, "one_pass_for",
+                                    lambda m, n, itemsize, iterative=0: one_pass))
     return stack
 
 
@@ -517,6 +534,11 @@ K1_ROUTE_SIZES = ((60, 40), (40, 60), (80, 50), (90, 60), (100, 70), (120, 80), 
 # Logistic problems (m, m/2) whose f side has m iterative proxes, around the
 # shared side's cap on them.
 K1_ROUTE_LOGISTIC = (400, 600, 1000, 2000)
+# Tall lasso problems (m, n, itemsize) around the one pass's boundary
+# (fused_admm.ONE_PASS_BYTES, ONE_PASS_MIN_N), timed on the one pass and on
+# the plain products, on the plan's grid.
+K1_ONE_PASS_SIZES = ((5000, 2500, 4), (6000, 3000, 4), (8000, 4000, 4), (10000, 5000, 4),
+                     (20000, 2000, 4), (20000, 2500, 4))
 
 
 def k1_route_inputs(torch, P, m, n, dt, logistic=False):
@@ -548,7 +570,8 @@ def admm_route_table(torch, P):
     iterations at tolerance 0 (no exact residuals: ordinary iterations).
     On the plan's grid it also times the shared side forced on (3 barriers)
     and off (4), in every cell and on the logistic problems of
-    K1_ROUTE_LOGISTIC in f32."""
+    K1_ROUTE_LOGISTIC in f32, and the one pass forced on and off on the
+    tall problems of K1_ONE_PASS_SIZES."""
     from pogs_tpu_torch.ops import fused_admm as fa
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -583,7 +606,34 @@ def admm_route_table(torch, P):
                 **shared_side_times(torch, fa, args, At, iters)}
         rows.append(cell)
         emit({"phase": "admm_route_table", **cell})
+    for m, n, itemsize in K1_ONE_PASS_SIZES:
+        dt = torch.float32 if itemsize == 4 else torch.float64
+        args, At, iters = k1_route_inputs(torch, P, m, n, dt)
+        plan = k1_plan(torch, args)
+        cell = {"case": f"lasso_{m}x{n}", "shape": [m, n], "dtype": str(dt)[6:],
+                "iters": iters, "plan_blocks": plan["blocks"],
+                "plan_one_pass": plan["one_pass"],
+                **one_pass_times(torch, fa, args, At, iters)}
+        rows.append(cell)
+        emit({"phase": "admm_route_table", **cell})
     return rows
+
+
+def one_pass_times(torch, fa, args, At, iters):
+    """µs per iteration on the plan's grid on the one pass (where its ring
+    fits) and on the plain products, each forced, and the passes over A or
+    Aᵀ per iteration of each."""
+    out = {}
+    for on in (True, False):
+        with forced_k1(one_pass=on):
+            key = "one_pass" if on else "plain"
+            if k1_plan(torch, args)["one_pass"] != on:
+                out[key] = None
+                continue
+            run = lambda: fa.fused_admm_loop(*args, At=At)  # noqa: E731
+            out[key] = 1e3 * cuda_ms(torch, run, 2) / iters
+            out[f"{key}_passes_per_iter"] = int(run()["a_passes"]) / iters
+    return out
 
 
 def shared_side_times(torch, fa, args, At, iters):

@@ -81,6 +81,48 @@
 //   * Every scalar decision (near, converged, the rho update, done) is
 //     identical in every block: fixed-order sums (coop.cuh), no float
 //     atomics.  All state and scratch are allocated by the caller.
+//
+// The one-pass route (a tall f32 A beyond L2: admm_plan's one_pass).  There
+// an iteration is bound by its bytes: A^T y0 over A^T, Ginv rhs, A x over A
+// (500 MB an iteration at 10000x5000 f32, and 400 MB more on an iteration
+// near tolerance).  The row of A that gives y_i = A_i . x also carries
+// A_i^T d_i into the next iteration's A^T y0, where d_i, the next
+// over-relaxed input of row i, depends only on row i's state and on the
+// rho step, which is decided only after the iteration's sums.  Outside a
+// spectral step, that step keeps rho, multiplies it by delta or divides it
+// by delta (rho_schedule_step), and delta is known before the pass.  So one
+// pass over A's rows computes y = A x and three candidate products A^T d^c,
+// one for each step c, and the step decided picks one:
+//   * each block streams its rows kPassRows at a time (a step) through a
+//     ring of kStages steps in shared memory (after the staged x), each row
+//     by one bulk copy of the Tensor Memory Accelerator issued by one
+//     thread kStages - 2 steps ahead, which reports to the step's
+//     mbarrier; a row stays there from its dot product to its A^T use.
+//     The state of the block's rows (z, z~, prox value, prox parameters)
+//     is staged after the ring at the start of the pass;
+//   * a step: the rows' dot products, one block sync, then on warp 0 the y
+//     residual sums and, one thread per candidate, the next dual update
+//     and prox (the prox loop's own expressions, dual_prox), whose z~ and
+//     prox value go to P.cand, while every warp adds the previous step's
+//     A_i^T d_i^c into the block's partial n-vectors for its columns (in
+//     registers; written to P.cpart at the end of the pass);
+//   * after the decision the owners commit the chosen candidate's y state
+//     (stored, not recomputed: the state is what the A^T product saw), run
+//     the x side's prox, and form rhs = x0 + the blocks' partials in block
+//     order (no float atomics), so the next iteration starts with
+//     Ginv rhs: 3 barriers, and one pass over A;
+//   * k = 0 and a spectral step that changes rho take the plain A^T pass
+//     over At for that iteration; the exact residuals stay two products.
+// At 10000x5000 an ordinary iteration takes 137 us against the plain
+// route's 194 (K1's route table), the pass streaming at about 2.6 TB/s.
+// Measured and left: 16-byte cp.async copies by every thread (3 syncs a
+// step: 152 to 155 us), a ring sized at run time (205), one that took all
+// of shared memory, rows loaded straight into registers (which spilled:
+// 241).  In f64 the pass's registers spill and it was 11 to 20% slower than
+// the plain route, so the one pass is built for float alone.
+// stats[9] counts the passes over A or A^T (a_passes) on either route, and
+// stats[10] the iterations near tolerance (checks), each with its two
+// exact-residual passes.
 
 #include <cfloat>
 #include <cstdint>
@@ -107,6 +149,17 @@ constexpr int kIterSlots = S_R2;  // reduced once per iteration
 constexpr int kGroupRows = 128;   // rows of a block's share combined at once
 static_assert(kGroupRows <= kThreads, "one thread adds up each row of a group");
 
+// The one-pass route: rows of A a step takes, the state copied with each
+// row, the ring's stages (each one step), and the columns each thread keeps
+// the candidates' partial sums of (n at most kCols * kThreads).
+// ops/fused_admm.py::admm_plan mirrors them.
+constexpr int kPassRows = 2;
+constexpr int kCands = 3;      // keep, up, down (RhoStep order)
+constexpr int kRowState = 9;   // a row's z, z~, prox value, a .. e and function code
+constexpr int kStages = 4;
+constexpr int kCols = 10;
+static_assert(kPassRows * kWarps == 32, "one warp adds up the rows' warp sums");
+
 template <typename T> struct Params {
   const T* A;      // (m, n) row-major, equilibrated
   const T* At;     // (n, m) row-major, A transposed
@@ -127,7 +180,10 @@ template <typename T> struct Params {
   T* sin;          // (m) work: y12 + zt_y - z_y for the exact dual residual
   T* part;         // (max(m, n)) work: row sums between column tiles
   T* partials;     // (kSlots + kIterSlots, grid) work: two copies of an iteration's slots
-  T* stats;        // (9) out: optval, iters, status, rho, nrm_r, nrm_s, gap, eps_pri, eps_dua
+  T* cpart;        // (kCands, grid, n) work, one pass: each block's A^T d under each candidate
+  T* cand;         // (2, kCands, m) work, one pass: z~ and prox value of y under each candidate
+  T* stats;        // (11) out: optval, iters, status, rho, nrm_r, nrm_s, gap, eps_pri,
+                   // eps_dua, a_passes, checks
   int m, n;
   T abs_tol, rel_tol;
   int max_iter;
@@ -144,13 +200,93 @@ __device__ __forceinline__ int share_lo(int L, int b) {
   return (int)((long long)L * b / gridDim.x);
 }
 
+// The one pass's shared memory in elements (v per 16 bytes): the ring,
+// kStages steps of kPassRows rows of n, each with room to start on 16 bytes,
+// then the state of each row of A a block of the grid holds; at least
+// kThreads, the scratch of the sum of the blocks' partials.
+__host__ __device__ __forceinline__ long long ring_elems(int m, int n, int grid, int v) {
+  const long long rows = ((long long)m + grid - 1) / grid;
+  const long long r = (long long)kStages * kPassRows * (rnd16(n, v) + v) +
+                      rnd16((int)(rows * kRowState), v);
+  return r > kThreads ? r : kThreads;
+}
+
 // Shared-memory elements the launch needs; ops/fused_admm.py::admm_plan
-// computes the same: the staging buffer and the shared side in full (z, z~,
-// prox value, and the a, b, c, d, e and function code of its prox).
+// computes the same: the staging buffer, the shared side in full (z, z~,
+// prox value, and the a, b, c, d, e and function code of its prox), and the
+// one pass's ring.
 __host__ __device__ __forceinline__ long long smem_elems(int m, int n, int v, int xs_cap,
-                                                         int shared_side) {
+                                                         int shared_side, int one_pass, int grid) {
   const int R = m >= n ? m : n;
-  return xs_cap + (shared_side ? 9LL * rnd16(R, v) : 0LL);
+  return xs_cap + (shared_side ? 9LL * rnd16(R, v) : 0LL) +
+         (one_pass ? ring_elems(m, n, grid, v) : 0LL);
+}
+
+// The one pass's copies: one thread asks the Tensor Memory Accelerator for a
+// row's 16-byte-aligned part (cp.async.bulk), which reports the bytes to the
+// step's mbarrier in shared memory; every thread waits on that barrier's
+// phase.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(unsigned long long* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One element's step: the dual update with the previous projection zn (where
+// update; z~ then rescaled by scale), the prox under rho, and the
+// over-relaxed input, returned.  z, zt and p (the prox value) in place; zm =
+// the prox input less p.
+template <typename T>
+__device__ __forceinline__ T dual_prox(T& z, T& zt, T& p, T& zm, T zn, bool update, T scale,
+                                       int h, T a, T b, T c, T d, T e, T rho) {
+  const T alpha = T(1.7), one = T(1);
+  if (update) {
+    zt = (zt + alpha * p + (one - alpha) * z - zn) * scale;
+    z = zn;
+  }
+  const T in = z - zt;
+  p = prox_full(h, a, b, c, d, e, in, rho);
+  zm = in - p;
+  return zt + alpha * p + (one - alpha) * z;
+}
+
+// The elements [0, head) of a row of A before its first 16-byte boundary
+// (at most n), and where the row starts in its ring slot so that the rest
+// lies on 16 bytes in shared memory too.
+template <typename T> __device__ __forceinline__ int row_head(const T* src, int n) {
+  const unsigned off = (unsigned)reinterpret_cast<uintptr_t>(src) & 15u;
+  const int h = (int)(((16u - off) & 15u) / sizeof(T));
+  return h < n ? h : n;
+}
+template <typename T> __device__ __forceinline__ int row_shift(const T* src, int n) {
+  constexpr int V = Vec16<T>::n;
+  const int h = row_head(src, n);
+  return h ? V - h : 0;
 }
 
 // The row sums of rg rows of a row-major matrix, columns [c0, c0 + len):
@@ -277,13 +413,17 @@ template <typename T> struct Ctx {
   int R, O, roff, ooff, rlo, rhi, olo, ohi, rr;
 };
 
-template <typename T>
+// kPass: the one-pass route (a tall A; see the note at the top).
+template <typename T, bool kPass>
 __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char dyn[];
   __shared__ T smem[6 * kWarps];
   __shared__ T red[kSlots];
   __shared__ T slots[kGroupRows + kWarps];
+  constexpr int kPassSmem = 2 * kPassRows * kWarps + kPassRows * kCands * 5 + kCands * 3;
+  __shared__ T pass_sm[kPass ? kPassSmem : 1];
+  __shared__ __align__(8) unsigned long long pass_bar[kPass ? kStages : 1];
   constexpr int V = Vec16<T>::n;
 
   const int m = P.m, n = P.n;
@@ -298,6 +438,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
   T delta = T(K_DELTA_MIN), xi = T(1), kd = T(0), ku = T(0);
   T zt_scale = one;
   int k = 0;
+  int cand = -1;   // one pass: the candidate the last rho step chose (-1: none)
+  int pass_steps = 0;  // one pass: steps this block's passes have made (the barriers' phases)
+  int passes = 0;  // passes over A or A^T
+  int checks = 0;  // iterations near tolerance
   bool converged = false, nan_found = false;
   T nrm_r, nrm_s, gap, eps_pri, eps_dua;
 
@@ -373,6 +517,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
     ctx_store.olo = olo;
     ctx_store.ohi = ohi;
     ctx_store.rr = rr;
+    if (kPass)
+      for (int s = 0; s < kStages; ++s) mbar_init(&pass_bar[s]);
   }
   __syncthreads();
   volatile Ctx<T>& C = ctx_store;
@@ -394,9 +540,238 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
   };
   T* const tail = P.partials + kIterSlots * G;
 
+  // --- The one pass: y = A x over this block's rows, and the next
+  // iteration's A^T d under each candidate (the note at the top).  Adds the
+  // y residual sums to v.
+  T* const ring = xs + cap;
+  T* const psm = pass_sm;                        // (2, kPassRows, kWarps) the dots' warp sums
+  T* const zsm = psm + 2 * kPassRows * kWarps;   // (2, kPassRows, kCands) over-relaxed inputs
+  T* const gsm = zsm + 2 * kPassRows * kCands;   // (kPassRows * kCands, 3) gap sums by thread
+  T* const cgap = gsm + kPassRows * kCands * 3;  // (kCands, 3) the block's gap sums
+  auto one_pass = [&](T (&v)[6]) {
+    constexpr int NC = kCols, S = kStages;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int Ls = rnd16(n, V) + V, Lst = kPassRows * Ls;
+    const int r0 = C.A.r0, rows = C.A.r1 - C.A.r0;
+    const int steps = (rows + kPassRows - 1) / kPassRows;
+    T* const pst = ring + S * Lst;  // (rows, kRowState): each row's state
+    // Step g's stage: its kPassRows rows of A, each from its first 16-byte
+    // boundary by one bulk copy (the first thread of the last warp, after
+    // the stage's bytes are announced to its barrier: warp 0 runs the
+    // candidates), the elements before that boundary and after the row's
+    // last one by the threads after it.
+    constexpr int kIssuer = kThreads - 32;
+    auto issue = [&](int g) {
+      const int s = (pass_steps + g) % S;
+      T* const st = ring + s * Lst;
+      const int nr = rows - g * kPassRows < kPassRows ? rows - g * kPassRows : kPassRows;
+      if (threadIdx.x == kIssuer) {
+        // The stage was last read through the generic proxy; the copies
+        // write it through the async one.
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        unsigned bytes = 0;
+        for (int r = 0; r < nr; ++r) {
+          const T* const src = P.A + (size_t)(r0 + g * kPassRows + r) * n;
+          bytes += (n - row_head(src, n)) / V * 16;
+        }
+        mbar_expect(&pass_bar[s], bytes);
+        for (int r = 0; r < nr; ++r) {
+          const T* const src = P.A + (size_t)(r0 + g * kPassRows + r) * n;
+          const int head = row_head(src, n), nv = (n - head) / V;
+          if (nv > 0)
+            bulk_copy(st + r * Ls + row_shift(src, n) + head, src + head, nv * 16, &pass_bar[s]);
+        }
+      }
+      for (int r = 0; r < nr; ++r) {
+        const T* const src = P.A + (size_t)(r0 + g * kPassRows + r) * n;
+        const int head = row_head(src, n), t0 = head + (n - head) / V * V;
+        const int e = (int)threadIdx.x - kIssuer - 1 - r * 2 * V;
+        if (e >= 0 && e < head + n - t0) {
+          const int c = e < head ? e : t0 + e - head;
+          st[r * Ls + row_shift(src, n) + c] = __ldg(src + c);
+        }
+      }
+    };
+    // The ring was last written through the generic proxy (the scratch of
+    // commit_rhs) and is written next through the async one.
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();  // the last readers of xs and the ring are done
+    for (int g = 0; g < S - 2 && g < steps; ++g) issue(g);
+    for (int j = threadIdx.x; j < n; j += blockDim.x) xs[j] = __ldcg(P.znew + j);
+    for (int t = threadIdx.x; t < rows * kRowState; t += blockDim.x) {
+      const int r = t / kRowState, f = t % kRowState, i = r0 + r;
+      if (f == kRowState - 1) *reinterpret_cast<int*>(pst + t) = __ldg(P.hf + i);
+      else pst[t] = f == 0 ? C.y.z[i] : f == 1 ? C.y.zt[i] : f == 2 ? C.y.p12[i]
+                                                         : __ldg(P.fp + (size_t)(f - 3) * m + i);
+    }
+    T acc[kCands][NC];
+#pragma unroll
+    for (int c = 0; c < kCands; ++c)
+#pragma unroll
+      for (int u = 0; u < NC; ++u) acc[c][u] = T(0);
+    // Thread q < kPassRows * kCands runs candidate qc of the step's row qr.
+    const int q = threadIdx.x, qr = q / kCands, qc = q % kCands;
+    const T rho_q = qc == kRhoUp ? rho * delta : qc == kRhoDown ? rho / delta : rho;
+    const T scale_q = qc == kRhoUp ? one / delta : qc == kRhoDown ? delta : one;
+    T gq[3] = {T(0), T(0), T(0)};
+    __syncthreads();  // x, the state and the first steps' edge elements are staged
+    // The rows of step g from its stage, the last standing in for rows
+    // past the block's.
+    auto rows_of = [&](int g, const T* (&row)[kPassRows]) {
+      const T* const st = ring + ((pass_steps + g) % S) * Lst;
+      const int rg = rows - g * kPassRows < kPassRows ? rows - g * kPassRows : kPassRows;
+#pragma unroll
+      for (int r = 0; r < kPassRows; ++r) {
+        const int rr = r < rg ? r : 0;
+        row[r] = st + rr * Ls + row_shift(P.A + (size_t)(r0 + g * kPassRows + rr) * n, n);
+      }
+      return rg;
+    };
+    // acc += A_i^T d_i^c for step g's rows.
+    auto scatter = [&](int g) {
+      const T* row[kPassRows];
+      const int rg = rows_of(g, row);
+      const T* const zg = zsm + (g & 1) * kPassRows * kCands;
+      T wz[kPassRows][kCands];
+#pragma unroll
+      for (int r = 0; r < kPassRows; ++r)
+#pragma unroll
+        for (int c = 0; c < kCands; ++c) wz[r][c] = r < rg ? zg[r * kCands + c] : T(0);
+#pragma unroll
+      for (int u = 0; u < NC; ++u) {
+        const int j = threadIdx.x + u * kThreads;
+        if (j < n) {
+#pragma unroll
+          for (int r = 0; r < kPassRows; ++r) {
+            const T a = row[r][j];
+#pragma unroll
+            for (int c = 0; c < kCands; ++c) acc[c][u] += a * wz[r][c];
+          }
+        }
+      }
+    };
+    // Step g: its dot products, one block sync, then on warp 0 its
+    // candidates while every warp adds step g - 1's A^T products (whose
+    // candidates warp 0 ran before that sync), and the copy of step
+    // g + S - 2 into the stage step g - 2 used.  The warp sums and the
+    // candidates' inputs alternate between two buffers by the parity of g.
+    for (int g = 0; g < steps; ++g) {
+      const int gs = pass_steps + g;
+      mbar_wait(&pass_bar[gs % S], (gs / S) & 1);
+      const T* row[kPassRows];
+      const int rg = rows_of(g, row);
+      T d[kPassRows];
+#pragma unroll
+      for (int r = 0; r < kPassRows; ++r) d[r] = T(0);
+#pragma unroll
+      for (int u = 0; u < NC; ++u) {
+        const int j = threadIdx.x + u * kThreads;
+        if (j < n) {
+          const T xv = xs[j];
+#pragma unroll
+          for (int r = 0; r < kPassRows; ++r) d[r] += row[r][j] * xv;
+        }
+      }
+      T* const pg = psm + (g & 1) * kPassRows * kWarps;
+#pragma unroll
+      for (int r = 0; r < kPassRows; ++r) {
+        const T w = warp_sum(d[r]);
+        if (lane == 0) pg[r * kWarps + warp] = w;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // Lanes 16 r .. 16 r + 15 add up row r's warp sums (a fixed
+        // butterfly); each candidate thread takes its row's.
+        T y = pg[lane];
+#pragma unroll
+        for (int off = kWarps / 2; off > 0; off >>= 1) y += __shfl_xor_sync(0xffffffffu, y, off);
+        y = __shfl_sync(0xffffffffu, y, (qr < kPassRows ? qr : 0) * kWarps);
+        if (q < kCands * rg) {
+          const int i = r0 + g * kPassRows + qr;
+          const T* const sv = pst + (g * kPassRows + qr) * kRowState;
+          T z = sv[0], zt = sv[1], p = sv[2], zm;
+          if (qc == kRhoKeep) {
+            P.znew[n + i] = y;
+            const T dp = z - y, d12 = p - y;
+            v[S_DY_PREV - S_DY_PREV] += dp * dp;
+            v[S_DY12 - S_DY_PREV] += d12 * d12;
+            v[S_SUM_Y - S_DY_PREV] += y;
+            P.sin[i] = p + zt - z;
+          }
+          zsm[(g & 1) * kPassRows * kCands + q] =
+              dual_prox(z, zt, p, zm, y, true, scale_q,
+                        *reinterpret_cast<const int*>(sv + kRowState - 1), sv[3], sv[4], sv[5],
+                        sv[6], sv[7], rho_q);
+          P.cand[(size_t)qc * m + i] = zt;
+          P.cand[(size_t)(kCands + qc) * m + i] = p;
+          gq[0] += zm * p;
+          gq[1] += zm * zm;
+          gq[2] += p * p;
+        }
+      }
+      if (g > 0) scatter(g - 1);
+      if (g + S - 2 < steps) issue(g + S - 2);
+    }
+    __syncthreads();
+    if (steps > 0) scatter(steps - 1);
+    pass_steps += steps;
+    // The candidates' gap sums (threads, then rows, in order), and the
+    // block's partial products.
+    if (q < kPassRows * kCands)
+      for (int s = 0; s < 3; ++s) gsm[q * 3 + s] = gq[s];
+    __syncthreads();
+    if (threadIdx.x < kCands * 3) {
+      const int c = threadIdx.x / 3, s = threadIdx.x % 3;
+      T t = T(0);
+      for (int r = 0; r < kPassRows; ++r) t += gsm[(r * kCands + c) * 3 + s];
+      cgap[threadIdx.x] = t;
+    }
+#pragma unroll
+    for (int c = 0; c < kCands; ++c)
+#pragma unroll
+      for (int u = 0; u < NC; ++u) {
+        const int j = threadIdx.x + u * kThreads;
+        if (j < n) P.cpart[((size_t)c * G + b) * n + j] = acc[c][u];
+      }
+  };
+
+  // rhs = x0 + the blocks' A^T d under candidate c, for this block's x
+  // elements: the warps split the blocks into ranges and the lanes take 32
+  // columns, then each column adds its ranges in order (the ring as
+  // scratch).  Every thread of the block calls it.
+  auto commit_rhs = [&](int c) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const T* const cp = P.cpart + (size_t)c * G * n;
+    const int olo = C.olo, no = C.ohi - C.olo, nch = (no + 31) / 32;
+    for (int c0 = 0; c0 < nch; c0 += kWarps) {
+      const int nc = nch - c0 < kWarps ? nch - c0 : kWarps;  // 32-column chunks this round
+      const int ranges = kWarps / nc, rng = warp / nc;
+      const int jj = (c0 + warp % nc) * 32 + lane;
+      T s = T(0);
+      if (rng < ranges && jj < no) {
+        const int b0 = (int)((long long)G * rng / ranges);
+        const int b1 = (int)((long long)G * (rng + 1) / ranges);
+        const T* const p = cp + olo + jj;
+#pragma unroll 4
+        for (int bb = b0; bb < b1; ++bb) s += __ldcg(p + (size_t)bb * n);
+      }
+      ring[warp * 32 + lane] = s;
+      __syncthreads();
+      const int j2 = (c0 + warp) * 32 + lane;
+      if (warp < nc && j2 < no) {
+        T t = C.x.zor[olo + j2];
+        for (int r = 0; r < ranges; ++r) t += ring[(r * nc + warp) * 32 + lane];
+        P.rhs[olo + j2] = t;
+      }
+      __syncthreads();
+    }
+  };
+
   for (;;) {
     const bool update = k > 0;
     T* const iter_partials = P.partials + (k & 1) * kIterSlots * G;
+    // One pass: the last pass holds this iteration's y side and A^T y0.
+    const bool commit = kPass && cand >= 0;
 
     // --- Prox: both sides, with the previous iteration's dual update. -----
     // Each thread takes its elements kChunk at a time: every load of a chunk
@@ -406,7 +781,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
       T gR[3] = {T(0), T(0), T(0)}, gO[3] = {T(0), T(0), T(0)};  // gap sums
       const int R = C.R, O = C.O, rlo = C.rlo, rhi = C.rhi, olo = C.olo;
       const int lo = shared_side ? 0 : rlo;
-      const int nR = (shared_side ? R : rhi) - lo, total = nR + (C.ohi - olo);
+      const int nR = commit ? 0 : (shared_side ? R : rhi) - lo, total = nR + (C.ohi - olo);
       const int* const hR = tall ? P.hf : P.hg;
       const int* const hO = tall ? P.hg : P.hf;
       const T* const pR = tall ? P.fp : P.gp;
@@ -451,16 +826,9 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
             T* const sz = isR ? C.r.z : C.o.z;
             T* const szt = isR ? C.r.zt : C.o.zt;
             T* const sp12 = isR ? C.r.p12 : C.o.p12;
-            const T alpha = T(1.7);
-            T z = sz[i], zt = szt[i];
-            if (update) {
-              zt = (zt + alpha * sp12[i] + (one - alpha) * z - zn[u]) * zt_scale;
-              z = zn[u];
-            }
-            const T in = z - zt;
-            const T p = prox_full(hh[u], pa[u], pb[u], pc[u], pd[u], pe[u], in, rho);
-            const T zm = in - p;
-            const T zor = zt + alpha * p + (one - alpha) * z;
+            T z = sz[i], zt = szt[i], p = sp12[i], zm;
+            const T zor = dual_prox(z, zt, p, zm, zn[u], update, zt_scale, hh[u], pa[u], pb[u],
+                                    pc[u], pd[u], pe[u], rho);
             sz[i] = z;
             szt[i] = zt;
             sp12[i] = p;
@@ -481,6 +849,18 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
           }
         }
       }
+      if (commit) {
+        // The y side: the chosen candidate's state, as the pass stored it.
+        const T* const czt = P.cand + (size_t)cand * m;
+        const T* const cp12 = P.cand + (size_t)(kCands + cand) * m;
+        for (int i = rlo + (int)threadIdx.x; i < rhi; i += blockDim.x) {
+          C.y.z[i] = P.znew[n + i];
+          C.y.zt[i] = czt[i];
+          C.y.p12[i] = cp12[i];
+        }
+        if (threadIdx.x == 0)
+          for (int s = 0; s < 3; ++s) gR[s] += cgap[cand * 3 + s];
+      }
       T g[6];
 #pragma unroll
       for (int s = 0; s < 3; ++s) {
@@ -488,6 +868,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
         g[S_ZMY_Y12 + s] = tall ? gR[s] : gO[s];
       }
       partial(g, iter_partials, S_ZMX_X12);
+      if (commit) commit_rhs(cand);
     }
     if (!shared_side) {
       grid_sync(grid);
@@ -496,11 +877,15 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
     // --- The projection: three products, a barrier after each. -----------
     T v[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};  // residual sums, from S_DY_PREV
     if (tall) {
-      // rhs = x0 + A^T y0
-      mv(C.At, xs, shared_side, from(P.zor + n), [&](int r, T d) {
-        P.rhs[r] = C.x.zor[r] + d;
-      });
-      grid_sync(grid);
+      // rhs = x0 + A^T y0 (on the one-pass route only where the last pass
+      // holds no candidate for the rho step taken)
+      if (!commit) {
+        mv(C.At, xs, shared_side, from(P.zor + n), [&](int r, T d) {
+          P.rhs[r] = C.x.zor[r] + d;
+        });
+        grid_sync(grid);
+        ++passes;
+      }
       // x = Ginv rhs, with the x residual sums
       mv(C.G, xs, false, from(P.rhs), [&](int r, T d) {
         P.znew[r] = d;
@@ -510,8 +895,10 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
         v[S_SUM_X - S_DY_PREV] += d;
       });
       grid_sync(grid);
-      // y = A x, with the y residual sums
-      mv(C.A, xs, false, from(P.znew), [&](int i, T d) {
+      // y = A x, with the y residual sums; on the one-pass route with the
+      // next iteration's A^T products
+      if (kPass) one_pass(v);
+      if (!kPass) mv(C.A, xs, false, from(P.znew), [&](int i, T d) {
         P.znew[n + i] = d;
         const T cy = C.y.z[i], yh = C.y.p12[i];
         const T dp = cy - d, d12 = yh - d;
@@ -520,6 +907,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
         v[S_SUM_Y - S_DY_PREV] += d;
         P.sin[i] = yh + C.y.zt[i] - cy;
       });
+      ++passes;
     } else {
       // rhs = A x0 - y0
       mv(C.A, xs, shared_side, from(P.zor), [&](int i, T d) {
@@ -548,6 +936,7 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
         v[S_DX12 - S_DY_PREV] += d12 * d12;
         v[S_SUM_X - S_DY_PREV] += xn;
       });
+      passes += 2;
     }
     partial(v, iter_partials, S_DY_PREV);
     if (G > 1) {
@@ -591,6 +980,8 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
         mv(C.A, xs, false, from(P.xy12), r_epi);
         mv(C.At, xs, false, from(P.sin), s_epi);
       }
+      passes += 2;
+      ++checks;
       partial(ve, tail, S_R2);
       if (G > 1) {
         grid_sync(grid);
@@ -611,9 +1002,13 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
     }
 
     // --- Adaptive rho (pogs.cpp:401-466); z~ is rescaled in the next prox.
+    // On the one-pass route the step picks its candidate (none if spectral).
     zt_scale = one;
+    int step = kRhoKeep;
     if (P.adaptive_rho)
-      zt_scale = rho_schedule_step(k, nrm_r, nrm_s, eps_pri, eps_dua, rho, delta, xi, kd, ku);
+      zt_scale = rho_schedule_step(k, nrm_r, nrm_s, eps_pri, eps_dua, rho, delta, xi, kd, ku,
+                                   kPass ? &step : nullptr);
+    cand = kPass && step != kRhoSpectral ? step : -1;
     ++k;
   }
 
@@ -653,23 +1048,29 @@ __global__ void __launch_bounds__(kThreads, 1) fused_admm_kernel(Params<T> P) {
     st[6] = gap;
     st[7] = eps_pri;
     st[8] = eps_dua;
+    st[9] = T(passes);
+    st[10] = T(checks);
   }
 }
 
-template <typename T>
-cudaError_t set_smem(int bytes) {
-  return cudaFuncSetAttribute(fused_admm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
+// The kernel of a route: the one pass (float only) or the plain products;
+// null for a double one pass.
+template <typename T> const void* kernel_of(int one_pass) {
+  if constexpr (sizeof(T) == 4)
+    if (one_pass) return (const void*)fused_admm_kernel<T, true>;
+  return one_pass ? nullptr : (const void*)fused_admm_kernel<T, false>;
 }
 
 template <typename T>
-int blocks_per_sm(int device, int smem_bytes, int* per_sm) {
+int blocks_per_sm(int device, int smem_bytes, int one_pass, int* per_sm) {
+  const void* kernel = kernel_of<T>(one_pass);
+  if (!kernel) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = set_smem<T>(smem_bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fused_admm_kernel<T>,
-                                                            kThreads, smem_bytes);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads,
+                                                            smem_bytes);
 }
 
 template <typename T>
@@ -678,18 +1079,20 @@ int launch(int device, const void* A, const void* At, const void* Ginv,
            const void* scal, void* xy12, void* munu, void* z, void* zt,
            void* work, void* stats, int m, int n, double abs_tol,
            double rel_tol, int max_iter, int gap_stop, int adaptive_rho,
-           int grid, int smem_bytes, int xs_cap, int shared_side, void* stream) {
+           int grid, int smem_bytes, int xs_cap, int shared_side, int one_pass,
+           void* stream) {
   constexpr int V = Vec16<T>::n;
   const int R = m >= n ? m : n;
-  if (m < 1 || n < 1 || grid < 1 || xs_cap < V || xs_cap % V ||
+  const void* kernel = kernel_of<T>(one_pass);
+  if (!kernel || m < 1 || n < 1 || grid < 1 || xs_cap < V || xs_cap % V ||
       (shared_side && xs_cap < rnd16(R, V)) ||
+      (one_pass && (m < n || shared_side || xs_cap < rnd16(n, V) || n > kCols * kThreads)) ||
       (long long)smem_bytes <
-          smem_elems(m, n, V, xs_cap, shared_side) *
-              (long long)sizeof(T))
+          smem_elems(m, n, V, xs_cap, shared_side, one_pass, grid) * (long long)sizeof(T))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  err = set_smem<T>(smem_bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int N = m + n, k = m < n ? m : n;
   T* wk = static_cast<T*>(work);
@@ -713,6 +1116,9 @@ int launch(int device, const void* A, const void* At, const void* Ginv,
   P.sin = P.w + k;
   P.part = P.sin + m;
   P.partials = P.part + R;
+  T* const pass = P.partials + (size_t)(kSlots + kIterSlots) * grid;
+  P.cpart = one_pass ? pass : nullptr;
+  P.cand = one_pass ? pass + (size_t)kCands * grid * n : nullptr;
   P.stats = static_cast<T*>(stats);
   P.m = m;
   P.n = n;
@@ -724,8 +1130,7 @@ int launch(int device, const void* A, const void* At, const void* Ginv,
   P.shared_side = shared_side;
   P.xs_cap = xs_cap;
   void* args[] = {&P};
-  err = cudaLaunchCooperativeKernel((const void*)fused_admm_kernel<T>, dim3(grid),
-                                    dim3(kThreads), args, smem_bytes,
+  err = cudaLaunchCooperativeKernel(kernel, dim3(grid), dim3(kThreads), args, smem_bytes,
                                     static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -735,46 +1140,51 @@ int launch(int device, const void* A, const void* At, const void* Ginv,
 
 extern "C" {
 
-// Elements of the work buffer the launch needs for a given grid.
-long long pogs_fused_admm_work_elems(int m, int n, int grid) {
+// Elements of the work buffer the launch needs for a given grid and route.
+long long pogs_fused_admm_work_elems(int m, int n, int grid, int one_pass) {
   const long long N = (long long)m + n, k = m < n ? m : n, R = m > n ? m : n;
-  return 2 * N + 2 * k + m + R + (long long)(kSlots + kIterSlots) * grid;
+  const long long pass = one_pass ? (long long)kCands * grid * n + 2LL * kCands * m : 0;
+  return 2 * N + 2 * k + m + R + (long long)(kSlots + kIterSlots) * grid + pass;
 }
 
 // Shared-memory bytes a launch plan needs (ops/fused_admm.py::admm_plan
 // computes the same).
-long long pogs_fused_admm_smem_bytes(int is_double, int m, int n, int xs_cap, int shared_side) {
+long long pogs_fused_admm_smem_bytes(int is_double, int m, int n, int xs_cap, int shared_side,
+                                     int one_pass, int grid) {
   const int size = is_double ? 8 : 4;
-  return smem_elems(m, n, 16 / size, xs_cap, shared_side) * size;
+  return smem_elems(m, n, 16 / size, xs_cap, shared_side, one_pass, grid) * size;
 }
 
-// The blocks of the kernel an SM holds at once with `smem_bytes` of dynamic
-// shared memory (0: it does not fit).  Returns a cudaError_t code.
-int pogs_fused_admm_blocks_per_sm(int is_double, int device, int smem_bytes, int* per_sm) {
-  return is_double ? blocks_per_sm<double>(device, smem_bytes, per_sm)
-                   : blocks_per_sm<float>(device, smem_bytes, per_sm);
+// The blocks of a route's kernel an SM holds at once with `smem_bytes` of
+// dynamic shared memory (0: it does not fit).  Returns a cudaError_t code.
+int pogs_fused_admm_blocks_per_sm(int is_double, int device, int smem_bytes, int one_pass,
+                                  int* per_sm) {
+  return is_double ? blocks_per_sm<double>(device, smem_bytes, one_pass, per_sm)
+                   : blocks_per_sm<float>(device, smem_bytes, one_pass, per_sm);
 }
 
 // Launch the whole solve on `stream` with the launch plan (grid blocks,
 // smem_bytes of dynamic shared memory, xs_cap staged elements, the shared
-// side on or off); does not synchronise.  Returns the cudaError_t of the
-// launch (0 on success).
+// side on or off, the one pass on (float only) or off); does not
+// synchronise.  Returns
+// the cudaError_t of the launch (0 on success).
 int pogs_fused_admm(int is_double, int device, const void* A, const void* At,
                     const void* Ginv, const int* hf, const void* fp,
                     const int* hg, const void* gp, const void* scal,
                     void* xy12, void* munu, void* z, void* zt, void* work,
                     void* stats, int m, int n, double abs_tol, double rel_tol,
                     int max_iter, int gap_stop, int adaptive_rho, int grid,
-                    int smem_bytes, int xs_cap, int shared_side, void* stream) {
+                    int smem_bytes, int xs_cap, int shared_side, int one_pass,
+                    void* stream) {
   if (is_double)
     return launch<double>(device, A, At, Ginv, hf, fp, hg, gp, scal, xy12, munu, z,
                           zt, work, stats, m, n, abs_tol, rel_tol, max_iter,
                           gap_stop, adaptive_rho, grid, smem_bytes, xs_cap, shared_side,
-                          stream);
+                          one_pass, stream);
   return launch<float>(device, A, At, Ginv, hf, fp, hg, gp, scal, xy12, munu, z,
                        zt, work, stats, m, n, abs_tol, rel_tol, max_iter,
                        gap_stop, adaptive_rho, grid, smem_bytes, xs_cap, shared_side,
-                       stream);
+                       one_pass, stream);
 }
 
 const char* pogs_fused_admm_error_string(int code) {

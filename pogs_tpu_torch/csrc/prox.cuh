@@ -215,9 +215,14 @@ template <typename T> __device__ __forceinline__ T warp_sum(T v) {
 // version is solver/admm.py::rho_schedule) after iteration k: the spectral
 // step every K_SPEC_FREQ iterations, the balancing step otherwise.  Updates
 // rho, delta, xi, kd and ku in place and returns the factor that rescales z~.
+// Where `step` is given it receives the step taken: kRhoKeep, kRhoUp (rho
+// delta, z~ over delta), kRhoDown (rho / delta, z~ times delta) or
+// kRhoSpectral.
+enum RhoStep { kRhoKeep = 0, kRhoUp = 1, kRhoDown = 2, kRhoSpectral = 3 };
+
 template <typename T>
 __device__ T rho_schedule_step(int k, T nrm_r, T nrm_s, T eps_pri, T eps_dua, T& rho, T& delta,
-                               T& xi, T& kd, T& ku) {
+                               T& xi, T& kd, T& ku, int* step = nullptr) {
   const T one = T(1);
   const T rho_min = Lim<T>::rho_min(), rho_max = Lim<T>::rho_max();
   const T pri_n = nrm_r / eps_pri;
@@ -252,6 +257,8 @@ __device__ T rho_schedule_step(int k, T nrm_r, T nrm_s, T eps_pri, T eps_dua, T&
   if (bal_both) xi = xi * T(K_KAPPA);
   if (up_apply) ku = kf;
   if (dn_apply) kd = kf;
+  if (step)
+    *step = spec_apply ? kRhoSpectral : up_apply ? kRhoUp : dn_apply ? kRhoDown : kRhoKeep;
   rho = rho_new;
   return zt_scale;
 }

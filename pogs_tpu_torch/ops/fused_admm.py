@@ -16,8 +16,11 @@ the JAX function (without the TPU's 128-lane padding):
 ``admm_plan`` gives the launch plan the kernel takes: blocks (one for a
 small problem, else half or all of the SMs), threads, dynamic shared memory and the
 barriers (3 per iteration where every block computes the first product's
-side itself, else 4; one more on an iteration near tolerance).
-``fused_admm_loop.launches`` counts kernel launches.
+side itself, else 4; one more on an iteration near tolerance), and the route:
+a tall A beyond ``ONE_PASS_BYTES`` takes one pass over A per iteration
+(``one_pass_for``).  ``fused_admm_loop.launches`` counts kernel launches; the
+result's ``a_passes`` the passes over A or Aᵀ the solve made, and ``checks``
+its iterations near tolerance.
 """
 
 from __future__ import annotations
@@ -38,6 +41,16 @@ THREADS = 512               # threads per block (csrc/coop.cuh kThreads)
 SMEM_BUDGET = 229_376       # dynamic shared memory a block may take (of 232,448)
 ONE_BLOCK_ELEMS = 11_000    # matrix elements (2mn + k²) run on one block
 HALF_GRID_ELEMS = 32_768    # ... on half the SMs (blocks_for)
+# The one-pass route (csrc/fused_admm.cu, kPassRows, kRowState, kStages,
+# kCols): rows of A a step takes, the state staged for each row, the ring's
+# steps, and columns per thread (n at most PASS_COLS * THREADS).
+PASS_ROWS = 2
+PASS_ROW_STATE = 9
+PASS_STAGES = 4
+PASS_COLS = 10
+ONE_PASS_BYTES = 90_000_000  # A and Ginv, (mn + n²)·itemsize, beyond which a tall A takes it
+ONE_PASS_MIN_N = 2_500       # ... with at least this many columns
+STATS = 11                   # entries of the kernel's stats vector
 # Functions whose prox iterates (Newton, bisection, Lambert W): logistic,
 # exp, negative entropy.
 ITERATIVE_PROX = (int(Function.EXP), int(Function.LOGISTIC), int(Function.NEGENTR))
@@ -63,6 +76,26 @@ def shared_side_for(iterative: int) -> bool:
     every cell, from 60x40 to 5000x2500 (faster up to 3000x1500: 34.7 / 35.9;
     5000x2500 68.3 / 67.5, 2500x5000 69.1 / 66.7)."""
     return iterative <= THREADS
+
+
+def one_pass_for(m: int, n: int, itemsize: int, iterative: int = 0) -> bool:
+    """Whether a tall (m, n) problem, ``iterative`` of whose m f elements
+    have an iterative prox, takes the one-pass route: one pass over A an
+    iteration, y = A x fused with the next iteration's Aᵀ products under
+    each ρ step the balancing can take, in f32, where A and Ginv lie beyond
+    ONE_PASS_BYTES, rows are at least ONE_PASS_MIN_N long and no prox of f
+    iterates.  K1's route table (chip_smoke.py's phase 3; an NVIDIA H100
+    80GB HBM3, 700 W), µs per iteration on the one pass / the plain
+    products, f32: 10000x5000 137.2 / 193.9, 8000x4000 106.5 / 132.5,
+    20000x2500 162.2 / 173.0, 6000x3000 79.0 / 85.5; 5000x2500 (75 MB)
+    66.3 / 67.2, a draw; 20000x2000 156.3 / 143.1.  Below the bytes the pass
+    saves too little; on shorter rows its block sync every two rows costs
+    more than the bytes; an iterative prox runs three times a row on one
+    thread each (logistic 5000x2500: 128 / 83); in f64 the pass's registers
+    spill (5000x2500 141.6 / 117.7, 6000x3000 173.8 / 156.6); a wide A keeps
+    the plain products."""
+    return (itemsize == 4 and m >= n >= ONE_PASS_MIN_N and iterative == 0
+            and (m * n + n * n) * itemsize > ONE_PASS_BYTES)
 
 
 def blocks_for(m: int, n: int, sms: int) -> int:
@@ -97,13 +130,25 @@ def admm_plan(m: int, n: int, itemsize: int, sms: int, limit: int,
         reads (y tall, x wide) into its shared memory and keeps that side's
         z, z̃, prox value and prox parameters there (``shared_side_for``,
         where it fits), so the first product waits for no barrier;
+      * ``one_pass``: the one-pass route (``one_pass_for``, in f32, the
+        kernel's one pass being built for it alone, where n is at most
+        PASS_COLS · THREADS and the ring fits beside the staged x): the
+        shared side off, and ``ring`` elements of shared memory after the
+        staging buffer, PASS_STAGES steps of PASS_ROWS rows of A, then the
+        state of each of a block's rows (at least THREADS elements, the
+        scratch of the sum of the blocks' products; 0 off the route);
       * ``xs``: elements of the vector staging buffer, both vectors of the
-        exact residuals where they fit (else column tiles);
+        exact residuals where they fit (else column tiles; on the one pass
+        x alone, which leaves the static arrays and L1 their room);
       * ``smem``: dynamic shared memory in bytes;
-      * ``barriers_per_iter`` (3, or 4 without the shared side) and
-        ``barriers_per_check`` (1: the exact residuals near tolerance), and
-        the partial-sum slots reduced across blocks per iteration and per
-        check (``slots_per_iter``, ``slots_per_check``).
+      * ``barriers_per_iter`` (3, or 4 without the shared side or the one
+        pass) and ``barriers_per_check`` (1: the exact residuals near
+        tolerance), the partial-sum slots reduced across blocks per
+        iteration and per check (``slots_per_iter``, ``slots_per_check``),
+        and the passes over A or Aᵀ an ordinary iteration makes
+        (``passes_per_iter``: 1 on the one pass, else 2; the one pass's
+        k = 0 and spectral ρ steps add one pass and one barrier, each check
+        two passes).
 
     It depends on nothing else, so one problem always runs the same plan
     and sums in the same order."""
@@ -119,19 +164,27 @@ def admm_plan(m: int, n: int, itemsize: int, sms: int, limit: int,
     blocks = max(1, min(blocks_for(m, n, sms), sms, limit))
     pair = rnd(m) + rnd(n)
     state = 9 * rnd(side)
-    shared = shared_side_for(iterative) and state + pair <= budget
-    base = state if shared else 0
-    xs = pair if base + pair <= budget else (budget - base) // per * per
+    rows = -(-m // blocks)                   # a block's rows of A at most
+    ring = max(PASS_STAGES * PASS_ROWS * (rnd(n) + per) + rnd(rows * PASS_ROW_STATE), THREADS)
+    one = (one_pass_for(m, n, itemsize, iterative) and itemsize == 4
+           and n <= PASS_COLS * THREADS and rnd(n) + ring <= budget)
+    ring = ring if one else 0
+    shared = not one and shared_side_for(iterative) and state + pair <= budget
+    base = state if shared else ring
+    xs = pair if base + pair <= budget else rnd(n) if one else (budget - base) // per * per
     return {
         "blocks": blocks,
         "threads": THREADS,
         "shared_side": shared,
+        "one_pass": one,
+        "ring": ring,
         "xs": xs,
         "smem": (base + xs) * itemsize,
-        "barriers_per_iter": 3 if shared else 4,
+        "barriers_per_iter": 3 if shared or one else 4,
         "barriers_per_check": 1,
         "slots_per_iter": 12,
         "slots_per_check": 2,
+        "passes_per_iter": 1 if one else 2,
     }
 
 
@@ -176,13 +229,13 @@ def _lib():
     if not getattr(lib, "_pogs_typed", False):
         vp, ci, cd = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         lib.pogs_fused_admm.argtypes = ([ci, ci] + [vp] * 14
-                                        + [ci, ci, cd, cd] + [ci] * 7 + [vp])
+                                        + [ci, ci, cd, cd] + [ci] * 8 + [vp])
         lib.pogs_fused_admm.restype = ci
-        lib.pogs_fused_admm_blocks_per_sm.argtypes = [ci, ci, ci, ctypes.POINTER(ci)]
+        lib.pogs_fused_admm_blocks_per_sm.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci)]
         lib.pogs_fused_admm_blocks_per_sm.restype = ci
-        lib.pogs_fused_admm_smem_bytes.argtypes = [ci] * 5
+        lib.pogs_fused_admm_smem_bytes.argtypes = [ci] * 7
         lib.pogs_fused_admm_smem_bytes.restype = ctypes.c_longlong
-        lib.pogs_fused_admm_work_elems.argtypes = [ci, ci, ci]
+        lib.pogs_fused_admm_work_elems.argtypes = [ci] * 4
         lib.pogs_fused_admm_work_elems.restype = ctypes.c_longlong
         lib.pogs_fused_admm_error_string.argtypes = [ci]
         lib.pogs_fused_admm_error_string.restype = ctypes.c_char_p
@@ -196,13 +249,15 @@ def _check(lib, rc: int, what: str):
         raise RuntimeError(f"fused ADMM kernel: {what} failed: {msg} ({rc})")
 
 
-def _per_sm(lib, device: torch.device, is_double: bool, smem: int) -> int:
-    """Blocks an SM holds at once with ``smem`` bytes of dynamic shared memory."""
-    key = (device.index, is_double, smem)
+def _per_sm(lib, device: torch.device, is_double: bool, smem: int, one_pass: bool) -> int:
+    """Blocks of a route's kernel an SM holds at once with ``smem`` bytes of
+    dynamic shared memory."""
+    key = (device.index, is_double, smem, one_pass)
     if key not in _PER_SM:
         g = ctypes.c_int(0)
         _check(lib, lib.pogs_fused_admm_blocks_per_sm(int(is_double), device.index, smem,
-                                                      ctypes.byref(g)), "occupancy query")
+                                                      int(one_pass), ctypes.byref(g)),
+               "occupancy query")
         if g.value < 1:
             raise RuntimeError("fused ADMM kernel: a block does not fit on an SM")
         _PER_SM[key] = g.value
@@ -217,10 +272,11 @@ def launch_plan(lib, device: torch.device, dtype, m: int, n: int, h_f, h_g) -> d
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     iterative = iterative_count(h_f if m >= n else h_g)
     plan = admm_plan(m, n, itemsize, sms, sms, iterative)
-    limit = sms * _per_sm(lib, device, is_double, plan["smem"])
+    limit = sms * _per_sm(lib, device, is_double, plan["smem"], plan["one_pass"])
     if limit < plan["blocks"]:
         plan = admm_plan(m, n, itemsize, sms, limit, iterative)
-        if plan["blocks"] > sms * _per_sm(lib, device, is_double, plan["smem"]):
+        if plan["blocks"] > sms * _per_sm(lib, device, is_double, plan["smem"],
+                                          plan["one_pass"]):
             raise RuntimeError("fused ADMM kernel: the plan's blocks are not co-resident")
     return plan
 
@@ -289,8 +345,10 @@ def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, settings, z0, zt0,
     grid = plan["blocks"]
     xy12 = torch.empty(m + n, dtype=dt, device=dev)
     munu = torch.empty(m + n, dtype=dt, device=dev)
-    work = torch.empty(lib.pogs_fused_admm_work_elems(m, n, grid), dtype=dt, device=dev)
-    stats = torch.empty(9, dtype=dt, device=dev)
+    one_pass = int(plan["one_pass"])
+    work = torch.empty(lib.pogs_fused_admm_work_elems(m, n, grid, one_pass), dtype=dt,
+                       device=dev)
+    stats = torch.empty(STATS, dtype=dt, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.pogs_fused_admm(
         int(is_double), dev.index,
@@ -300,7 +358,7 @@ def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, settings, z0, zt0,
         stats.data_ptr(), m, n, float(settings.abs_tol), float(settings.rel_tol),
         int(settings.max_iter), int(bool(settings.gap_stop)),
         int(bool(settings.adaptive_rho)), grid, plan["smem"], plan["xs"],
-        int(plan["shared_side"]), stream,
+        int(plan["shared_side"]), one_pass, stream,
     )
     _check(lib, rc, "launch")
     fused_admm_loop.launches += 1
@@ -318,6 +376,8 @@ def _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, settings, z0, zt0,
         "gap": stats[6],
         "eps_pri": stats[7],
         "eps_dua": stats[8],
+        "a_passes": stats[9].to(torch.int32),
+        "checks": stats[10].to(torch.int32),
         "z": z,
         "zt": zt,
     }
@@ -332,7 +392,9 @@ def fused_admm_loop(A, Ginv, norm_A, h_f, f_params, h_g, g_params,
     (Gram + I) from ``DirectProjector(method='inverse')``, ``f_params`` /
     ``g_params`` the *scaled* (a, b, c, d, e) tuples.  ``At`` optionally
     passes a contiguous Aᵀ kept by the caller.  A CUDA ``A`` runs the
-    kernel; a CPU ``A`` runs :func:`fused_admm_loop_ref`.
+    kernel, whose result also holds ``a_passes``, the passes over A or Aᵀ
+    the solve made, and ``checks``, its iterations near tolerance (two of
+    those passes each); a CPU ``A`` runs :func:`fused_admm_loop_ref`.
     """
     if A.device.type == "cuda":
         return _launch(A, Ginv, norm_A, h_f, f_params, h_g, g_params, settings,

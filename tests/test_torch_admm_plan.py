@@ -142,6 +142,33 @@ _SHARED_TABLE = [
 ]
 
 
+# The one pass's route table: µs per iteration on the plan's grid on the one
+# pass and on the plain products (chip_smoke.py::admm_route_table, 200
+# iterations at tolerance 0, two runs each; an NVIDIA H100 80GB HBM3, 700 W).
+_ONE_PASS_TABLE = [
+    ('lasso_5000x2500', 5000, 2500, 4, 66.3, 67.2),
+    ('lasso_6000x3000', 6000, 3000, 4, 79.0, 85.5),
+    ('lasso_8000x4000', 8000, 4000, 4, 106.5, 132.5),
+    ('lasso_10000x5000', 10000, 5000, 4, 137.2, 193.9),
+    ('lasso_20000x2000', 20000, 2000, 4, 156.3, 143.1),
+    ('lasso_20000x2500', 20000, 2500, 4, 162.2, 173.0),
+    ('lasso_5000x2500', 5000, 2500, 8, 141.6, 117.7),
+    ('lasso_6000x3000', 6000, 3000, 8, 173.8, 156.6),
+]
+
+
+@pytest.mark.parametrize("case,m,n,itemsize,one_us,plain_us", _ONE_PASS_TABLE,
+                         ids=[f"{r[0]}-f{8 * r[3]}" for r in _ONE_PASS_TABLE])
+def test_plan_picks_the_faster_route(case, m, n, itemsize, one_us, plain_us):
+    """At every measured size the plan's route (the one pass or the plain
+    products) is within 5% of the faster; it takes the one pass wherever
+    that saves more than 5%."""
+    plan = pf.admm_plan(m, n, itemsize, 132, 132)
+    us = one_us if plan["one_pass"] else plain_us
+    assert us <= 1.05 * min(one_us, plain_us)
+    assert plan["one_pass"] or one_us > 0.95 * plain_us
+
+
 @pytest.mark.parametrize("case,m,n,itemsize,us", _ROUTE_TABLE,
                          ids=[f"{r[0]}-f{8 * r[3]}" for r in _ROUTE_TABLE])
 def test_plan_picks_a_fast_grid(case, m, n, itemsize, us):
@@ -184,13 +211,15 @@ def test_plan_shared_memory(m, n, itemsize):
 @pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
 @pytest.mark.parametrize("m,n", _SIZES)
 def test_plan_shared_memory_layout(m, n, itemsize):
-    """The plan's shared memory is its parts: the staging buffer and the
-    shared side (9 vectors of its length: state and prox parameters); the
-    owned elements' state is in global memory.  The staging buffer holds
-    both vectors of the exact residuals wherever they fit beside the rest."""
+    """The plan's shared memory is its parts: the staging buffer, the
+    shared side (9 vectors of its length: state and prox parameters) and the
+    one pass's ring; the owned elements' state is in global memory.  The
+    staging buffer holds both vectors of the exact residuals wherever they
+    fit beside the rest."""
     for sms in (132, 8):
         plan = pf.admm_plan(m, n, itemsize, sms, sms)
         parts = 9 * _rnd(max(m, n), itemsize) if plan["shared_side"] else 0
+        parts += plan["ring"]
         assert plan["smem"] == (plan["xs"] + parts) * itemsize
         pair = _rnd(m, itemsize) + _rnd(n, itemsize)
         assert (plan["xs"] == pair) == ((parts + pair) * itemsize <= pf.SMEM_BUDGET)
@@ -201,9 +230,9 @@ def test_plan_owned_state_in_global_memory_where_it_does_not_fit():
     elements' state is in global memory at any size, the shared side is
     off, and the staging buffer takes column tiles."""
     plan = pf.admm_plan(2_000_000, 20, 8, 132, 132)
-    assert set(plan) == {"blocks", "threads", "shared_side", "xs", "smem",
+    assert set(plan) == {"blocks", "threads", "shared_side", "one_pass", "ring", "xs", "smem",
                          "barriers_per_iter", "barriers_per_check", "slots_per_iter",
-                         "slots_per_check"}
+                         "slots_per_check", "passes_per_iter"}
     assert not plan["shared_side"] and plan["barriers_per_iter"] == 4
     assert plan["xs"] * 8 == plan["smem"] <= pf.SMEM_BUDGET
     assert plan["xs"] < 2_000_020
@@ -212,20 +241,22 @@ def test_plan_owned_state_in_global_memory_where_it_does_not_fit():
 def test_plan_barriers_and_the_logistic_rule():
     """3 barriers per ordinary iteration where every block computes the
     first product's side itself, 4 where that side has more iterative
-    proxes than a block has threads or does not fit in shared memory; one
-    more on an iteration near tolerance.  12 slots reduced per iteration, 2
-    per check."""
+    proxes than a block has threads or does not fit in shared memory, and 3
+    on the one pass (a tall A beyond ONE_PASS_BYTES), whose side is never
+    shared; one more on an iteration near tolerance.  12 slots reduced per
+    iteration, 2 per check."""
     assert pf.iterative_count([P.Function.LOGISTIC] * 5 + [P.Function.SQUARE] * 3
                               + [P.Function.EXP, P.Function.NEGENTR, P.Function.ABS]) == 7
     for m, n, iterative, bars in ((500, 300, 0, 3), (300, 500, 0, 3), (200, 100, 200, 3),
                                   (2000, 1000, 2000, 4), (2000, 1000, pf.THREADS, 3),
-                                  (2000, 1000, pf.THREADS + 1, 4), (20000, 5000, 0, 4),
+                                  (2000, 1000, pf.THREADS + 1, 4), (20000, 5000, 0, 3),
                                   (2048, 1000, 0, 3), (2049, 1000, 0, 3), (1000, 2049, 0, 3),
                                   (5000, 2500, 0, 3), (2500, 5000, 0, 3), (5400, 10, 0, 3),
                                   (5800, 10, 0, 4), (10, 5800, 0, 4)):
         plan = pf.admm_plan(m, n, 4, 132, 132, iterative)
         assert plan["barriers_per_iter"] == bars
-        assert plan["shared_side"] == (bars == 3)
+        assert plan["one_pass"] == pf.one_pass_for(m, n, 4, iterative)
+        assert plan["shared_side"] == (bars == 3 and not plan["one_pass"])
         assert plan["barriers_per_check"] == 1
         assert plan["slots_per_iter"] == 12 and plan["slots_per_check"] == 2
     slots = re.search(r"enum Slot \{(.*?)\};", _kernel_source(), re.S).group(1)
@@ -268,3 +299,97 @@ def test_launch_plan_counts_the_first_products_side(m, n):
     assert tall["shared_side"] == (m <= pf.THREADS)
     assert wide["shared_side"] == (m <= pf.THREADS)
     assert pf.admm_plan(n, m, 4, 132, 132, pf.iterative_count(h_g))["shared_side"]
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+def test_plan_one_pass_route_by_shape(itemsize, monkeypatch):
+    """The one pass where a tall f32 A and Ginv lie beyond ONE_PASS_BYTES
+    with rows of at least ONE_PASS_MIN_N and no iterative prox in f; the
+    plain products below it (in L2), for a wide A, for short rows, for a
+    logistic f, for f64, where the candidates' partial sums would not fit in
+    registers (n > PASS_COLS * THREADS), and in f64 even where forced (the
+    kernel's one pass is built for f32 alone); where forced in f32, the ring
+    (PASS_STAGES steps of PASS_ROWS rows, then each of a block's rows'
+    state) after the staged x."""
+    per = 16 // itemsize
+    for m, n in ((10000, 5000), (6000, 3000), (20000, 5000), (8000, 4000), (20000, 2500)):
+        assert pf.admm_plan(m, n, itemsize, 132, 132)["one_pass"] == (itemsize == 4)
+    monkeypatch.setattr(pf, "one_pass_for", lambda m, n, itemsize, iterative=0: True)
+    for m, n in ((10000, 5000), (6000, 3000), (20000, 5000), (8000, 4000), (20000, 2500)):
+        if itemsize == 8:
+            assert not pf.admm_plan(m, n, itemsize, 132, 132)["one_pass"]
+            continue
+        plan = pf.admm_plan(m, n, itemsize, 132, 132)
+        assert plan["one_pass"] and not plan["shared_side"]
+        rows = -(-m // plan["blocks"])
+        ring = (pf.PASS_STAGES * pf.PASS_ROWS * (_rnd(n, itemsize) + per)
+                + _rnd(rows * pf.PASS_ROW_STATE, itemsize))
+        assert plan["ring"] == max(ring, pf.THREADS)
+        assert plan["xs"] >= _rnd(n, itemsize)
+        assert plan["smem"] == (plan["xs"] + plan["ring"]) * itemsize <= pf.SMEM_BUDGET
+    monkeypatch.undo()
+    logistic = pf.admm_plan(10000, 5000, 4, 132, 132, 10000)
+    assert not logistic["one_pass"] and logistic["ring"] == 0
+    for m, n in ((500, 300), (2000, 1000), (2500, 5000), (5000, 10000), (100000, 50),
+                 (20000, 2000), (30000, 1000), (20000, 6000),
+                 (10000, pf.PASS_COLS * pf.THREADS + 1)):
+        plan = pf.admm_plan(m, n, itemsize, 132, 132)
+        assert not plan["one_pass"] and plan["ring"] == 0
+        assert plan["passes_per_iter"] == 2
+    assert pf.one_pass_for(100000, pf.ONE_PASS_MIN_N, 4)
+    assert not pf.one_pass_for(100000, pf.ONE_PASS_MIN_N - 1, 4)
+    assert pf.one_pass_for(20000, 2500, 4) and not pf.one_pass_for(20000, 2500, 8)
+    assert not pf.one_pass_for(2500, 20000, 4)
+    assert not pf.one_pass_for(5000, 2500, 4) and pf.one_pass_for(6000, 3000, 4)
+
+
+@pytest.mark.parametrize("itemsize", [4, 8], ids=["f32", "f64"])
+def test_plan_one_pass_counts(itemsize, monkeypatch):
+    """The one pass's barriers and slots: 3 barriers an ordinary iteration
+    (commit and rhs, Ginv rhs, the pass), one more near tolerance, the same
+    12 and 2 slots as the plain route, and one pass over A an iteration
+    against two; the plan, like every plan, a function of the problem.  In
+    f64, even forced onto it, the plan is the plain route's."""
+    m, n = 10000, 5000
+    if itemsize == 8:
+        plain = pf.admm_plan(m, n, itemsize, 132, 132)
+        monkeypatch.setattr(pf, "one_pass_for", lambda m, n, itemsize, iterative=0: True)
+        assert pf.admm_plan(m, n, itemsize, 132, 132) == plain
+        assert not plain["one_pass"] and plain["passes_per_iter"] == 2
+        return
+    plan = pf.admm_plan(m, n, itemsize, 132, 132)
+    assert plan["one_pass"] and plan["blocks"] == 132
+    assert (plan["barriers_per_iter"], plan["barriers_per_check"]) == (3, 1)
+    assert (plan["slots_per_iter"], plan["slots_per_check"]) == (12, 2)
+    assert plan["passes_per_iter"] == 1
+    pf.admm_plan(500, 300, itemsize, 132, 132)
+    pf.admm_plan(n, m, itemsize, 132, 132, m)
+    assert pf.admm_plan(m, n, itemsize, 132, 132) == plan
+    slim = pf.admm_plan(m, n, itemsize, 132, 66)
+    assert slim["blocks"] == 66 and slim["one_pass"]
+
+
+def test_kernel_one_pass_in_the_source():
+    """The one pass in the kernel's source: its constants are the plan's,
+    the plain A^T product is skipped only where the last pass holds the
+    step's candidate, and the rho step picks the candidate (no float
+    atomics anywhere), for float alone."""
+    src = _kernel_source()
+    assert re.search(r"constexpr int kPassRows = %d;" % pf.PASS_ROWS, src)
+    assert re.search(r"constexpr int kRowState = %d;" % pf.PASS_ROW_STATE, src)
+    assert re.search(r"constexpr int kStages = %d;" % pf.PASS_STAGES, src)
+    assert re.search(r"constexpr int kCols = %d;" % pf.PASS_COLS, src)
+    loop = src.split("for (;;) {")[1].split("// --- Exit")[0]
+    assert "const bool commit = kPass && cand >= 0;" in loop
+    assert re.search(r"if \(!commit\) \{\s*mv\(C\.At,", loop)
+    assert "if (kPass) one_pass(v);" in loop
+    assert "cand = kPass && step != kRhoSpectral ? step : -1;" in loop
+    assert "atomicAdd" not in src
+    # the one pass is instantiated for float alone; the stats end with
+    # a_passes and checks
+    assert "if constexpr (sizeof(T) == 4)" in src.split("const void* kernel_of(")[1]
+    assert "st[9] = T(passes);" in src and "st[10] = T(checks);" in src
+    assert pf.STATS == 11
+    prox = open(os.path.join(ROOT, "pogs_tpu_torch", "csrc", "prox.cuh")).read()
+    assert re.search(r"enum RhoStep \{ kRhoKeep = 0, kRhoUp = 1, kRhoDown = 2, "
+                     r"kRhoSpectral = 3 \};", prox)

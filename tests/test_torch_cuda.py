@@ -17,6 +17,7 @@ same status and iterations, x within 1e-12·max(1, ‖x‖∞), the gradients
 within rtol 1e-8.
 """
 
+import ctypes
 import importlib.util
 import os
 
@@ -208,7 +209,138 @@ def test_admm_plan_smem_matches_the_kernel(cuda):
                 plan = pf.admm_plan(m, n, itemsize, sms, sms)
                 assert lib.pogs_fused_admm_smem_bytes(
                     int(itemsize == 8), m, n, plan["xs"],
-                    int(plan["shared_side"])) == plan["smem"]
+                    int(plan["shared_side"]), int(plan["one_pass"]),
+                    plan["blocks"]) == plan["smem"]
+
+
+def _one_pass_fallbacks(out):
+    """The spectral fallbacks of a one-pass solve: its passes over A beyond
+    one an iteration, the first iteration's plain Aᵀ pass and two per check,
+    at most one per spectral slot (k > 0, k % 50 == 0)."""
+    iters = int(out["final_iter"]) + 1
+    extra = int(out["a_passes"]) - iters - 1 - 2 * int(out["checks"])
+    assert 0 <= extra <= (iters - 1) // 50
+    return extra
+
+
+def _forced_plain(monkeypatch):
+    monkeypatch.setattr(pf, "one_pass_for", lambda m, n, itemsize, iterative=0: False)
+
+
+@pytest.mark.parametrize("adaptive", [True, False], ids=["adaptive_rho", "fixed_rho"])
+def test_admm_one_pass_matches_plain(cuda, adaptive, monkeypatch):
+    """A tall f32 lasso beyond the one pass's boundary (6000x3000: 108 MB of
+    A and Ginv) with adaptive ρ on and off.  With ρ fixed every step keeps
+    its candidate: a_passes is exactly iterations + 1 (the plain Aᵀ pass at
+    k = 0) + 2 × checks, and the same problem on the plain route makes
+    2 × iterations + 2 × checks."""
+    args, At = _admm_lasso(cuda, (6000, 3000), torch.float32,
+                           settings=P.SolverSettings(max_iter=2000, adaptive_rho=adaptive))
+    plan = _admm_plan(args)
+    assert plan["one_pass"] and plan["barriers_per_iter"] == 3 and plan["blocks"] > 1
+    out, ref = _assert_admm_match(args, At)
+    assert int(ref["status"]) == 0 and int(out["checks"]) >= 1
+    fallbacks = _one_pass_fallbacks(out)
+    if not adaptive:
+        assert fallbacks == 0
+        iters = int(out["final_iter"]) + 1
+        assert int(out["a_passes"]) == iters + 1 + 2 * int(out["checks"])
+        _forced_plain(monkeypatch)
+        plain, _ = _assert_admm_match(args, At)
+        iters = int(plain["final_iter"]) + 1
+        assert int(plain["a_passes"]) == 2 * iters + 2 * int(plain["checks"])
+
+
+def test_admm_one_pass_counts_its_passes(cuda, monkeypatch):
+    """At tolerance 0 (no check, no spectral step) a_passes is exactly
+    iterations + 1 on the one pass and 2 × iterations on the plain route,
+    the same problem forced off it; the two routes agree."""
+    args, At = _admm_lasso(cuda, (6000, 3000), torch.float32,
+                           settings=P.SolverSettings(abs_tol=0.0, rel_tol=0.0, max_iter=60))
+    out, _ = _assert_admm_match(args, At)
+    assert int(out["final_iter"]) == 59 and int(out["checks"]) == 0
+    assert int(out["a_passes"]) == 60 + 1
+    _forced_plain(monkeypatch)
+    assert not _admm_plan(args)["one_pass"]
+    plain, _ = _assert_admm_match(args, At)
+    assert int(plain["a_passes"]) == 2 * 60 and int(plain["checks"]) == 0
+    lim = 5e-5 * max(1.0, float(plain["x12"].abs().max()))
+    assert float((out["x12"] - plain["x12"]).abs().max()) <= lim
+
+
+# A logistic f in f32 at 5000x2500 (‖x12‖∞ = 9.13): the plain route parts
+# from the plain version's x12 and z by 5.39e-5 and 5.91e-5·‖·‖∞, the one
+# pass by 5.18e-5 and 4.52e-5 (an NVIDIA H100 80GB HBM3), beyond the file's
+# 5e-5; this limit holds both with room.
+LOGISTIC_F32_LIMIT = 1e-4
+
+
+def test_admm_one_pass_logistic_matches_plain(cuda, monkeypatch):
+    """A logistic f beyond the boundary, forced onto the one pass (the plan
+    keeps an iterative f prox off it): the candidates' y-side prox is the
+    guarded Newton iteration, run three times a row.  Both routes against
+    the plain version: the same status, iterations within 2, optval within
+    1e-4, x12 and z within LOGISTIC_F32_LIMIT·max(1, ‖·‖∞)."""
+    rng = np.random.default_rng(11)
+    A = rng.standard_normal((5000, 2500))
+    f = P.FunctionVector(P.Function.LOGISTIC, 5000, a=-np.sign(rng.standard_normal(5000)))
+    g = P.FunctionVector(P.Function.ABS, 2500, c=0.2)
+    args, At = _admm_args(cuda, A, f, g, torch.float32, P.SolverSettings(max_iter=1000))
+    ref = pf.fused_admm_loop_ref(*args)
+    assert int(ref["status"]) == 0
+    assert not _admm_plan(args)["one_pass"]
+    plain = pf.fused_admm_loop(*args, At=At)
+    monkeypatch.setattr(pf, "one_pass_for", lambda m, n, itemsize, iterative=0: True)
+    assert _admm_plan(args)["one_pass"]
+    out = pf.fused_admm_loop(*args, At=At)
+    dist = {}
+    for route, o in (("plain", plain), ("one_pass", out)):
+        assert int(o["status"]) == int(ref["status"])
+        assert abs(int(o["final_iter"]) - int(ref["final_iter"])) <= 2
+        assert float(o["optval"]) == pytest.approx(float(ref["optval"]), rel=1e-4)
+        for key in ("x12", "z"):
+            scale = max(1.0, float(ref[key].abs().max()))
+            dist[route, key] = float((o[key] - ref[key]).abs().max()) / scale
+    assert max(dist.values()) <= LOGISTIC_F32_LIMIT, dist
+    _one_pass_fallbacks(out)
+
+
+def test_admm_one_pass_max_iter(cuda):
+    """A max_iter stop on the one pass: MAX_ITER after 7 iterations, one
+    pass each and the first iteration's plain Aᵀ pass."""
+    args, At = _admm_lasso(cuda, (6000, 3000), torch.float32,
+                           settings=P.SolverSettings(max_iter=7))
+    out, _ = _assert_admm_match(args, At)
+    assert int(out["status"]) == int(P.Status.MAX_ITER) and int(out["final_iter"]) == 6
+    assert int(out["a_passes"]) == 8 + 2 * int(out["checks"])
+
+
+@pytest.mark.parametrize("shape,blocks", [((90, 37), 3), ((90, 37), 132), ((61, 61), 1),
+                                          ((500, 300), 132), ((2001, 999), 16)],
+                         ids=["ragged_3", "ragged_132", "square_1", "bench_132", "odd_16"])
+def test_admm_one_pass_forced_matches_plain(cuda, shape, blocks, monkeypatch):
+    """The one pass forced onto f32 shapes the plan keeps in L2: rows that
+    do not start on 16 bytes (n = 37, 61, 999), blocks with no rows or an
+    odd count, one block, and the x side spread over more blocks than it
+    has elements."""
+    monkeypatch.setattr(pf, "one_pass_for", lambda m, n, itemsize, iterative=0: m >= n)
+    monkeypatch.setattr(pf, "blocks_for", lambda m, n, sms: blocks)
+    args, At = _admm_lasso(cuda, shape, torch.float32)
+    plan = _admm_plan(args)
+    assert plan["one_pass"] and plan["blocks"] == blocks
+    out, _ = _assert_admm_match(args, At)
+    _one_pass_fallbacks(out)
+
+
+def test_admm_one_pass_refuses_f64(cuda):
+    """The one pass is built for f32 alone: a launch that asks for it in
+    f64 is refused, and so is the occupancy query."""
+    lib = pf._lib()
+    per_sm = ctypes.c_int(0)
+    assert lib.pogs_fused_admm_blocks_per_sm(1, cuda.index or 0, 0, 1,
+                                             ctypes.byref(per_sm)) != 0
+    assert lib.pogs_fused_admm_blocks_per_sm(1, cuda.index or 0, 0, 0,
+                                             ctypes.byref(per_sm)) == 0
 
 
 def _sweep_args(cuda, shape, dtype, K, seed=7):

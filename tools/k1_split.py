@@ -21,9 +21,15 @@ iterations, and each site's microseconds per iteration:
 With --fine a "work" stamp also follows the start of an iteration, the end
 of the prox loop, its partial sums and every product, and the stamps add
 up in thread 0's local memory (a global read-modify-write per stamp would
-wait for L2 in every phase).  The cases are lasso 120x80, the bench lasso 500x300, the wide lasso
-300x500, logistic 2000x1000 and lasso 5000x2500, all float32 at the bench
-tolerances (abs 1e-4, rel 1e-3) from the port's own init.  Then, unless
+wait for L2 in every phase); on the one-pass route also after the pass and
+after the sum of the blocks' candidate products.  The cases are lasso
+120x80, the bench lasso 500x300, the wide lasso 300x500, logistic
+2000x1000, lasso 5000x2500 (on the plain products, just below the one
+pass's boundary) and the benchmark's lasso 10000x5000 (the only case on the
+one pass), all float32 at the bench tolerances (abs 1e-4, rel 1e-3)
+from the port's own init.  Each case also gives ``a_passes``, the passes
+over A or Aᵀ its solve made (where the tree's kernel counts them), per
+iteration too, and its plan.  Then, unless
 --no-barriers, the bare barrier loop of tools/barrier_loop.cu at grids of
 1, 8, 33, 66 and 132 blocks.  Everything is also written to ``--out``
 (default ``build/k1_split_<label>.json``).  Needs a CUDA device and nvcc.
@@ -47,12 +53,14 @@ sys.path.insert(0, HERE)
 import k3_split  # noqa: E402
 
 CASES = ("lasso_120x80", "lasso_500x300", "lasso_wide_300x500", "logistic_2000x1000",
-         "lasso_5000x2500")
+         "lasso_5000x2500", "lasso_10000x5000")
 # --fine: a stamp also after these statements of the loop (the start of an
-# iteration, the end of the prox loop, its partial sums, every product),
-# accumulated in local memory.
+# iteration, the end of the prox loop, its partial sums, every product, the
+# one pass and the sum of its candidate products), accumulated in local
+# memory.
 FINE_MARKS = (r"const bool update = k > 0;", r"^\s*T g\[6\];", r"^\s*partial\(g, ",
-              r"^\s*\}\);\s*$", r"^\s*\+\+k;")
+              r"^\s*\}\);\s*$", r"^\s*if \(kPass\) one_pass\(v\);",
+              r"^\s*if \(commit\) commit_rhs\(cand\);", r"^\s*\+\+k;")
 TOL = dict(abs_tol=1e-4, rel_tol=1e-3, gap_stop=False)
 
 
@@ -121,6 +129,9 @@ def split_case(torch, lib, sites, name, args, At, fused_admm_loop, plan_of):
     rec = {"case": name, "shape": list(args[0].shape), "status": int(out["status"]),
            "iterations": iters, "ms": ms, "us_per_iter": 1e3 * ms / iters,
            "totals_us_per_iter": totals, "sites": rows}
+    if "a_passes" in out:
+        rec["a_passes"] = int(out["a_passes"])
+        rec["a_passes_per_iter"] = rec["a_passes"] / iters
     if ns[k3_split.MAX_SITES - 2]:  # --fine: the kernel's time and SM clock on thread 0
         rec["kernel_us"] = ns[k3_split.MAX_SITES - 2] / 1e3
         rec["sm_clock_ghz"] = ns[k3_split.MAX_SITES - 1] / ns[k3_split.MAX_SITES - 2]
